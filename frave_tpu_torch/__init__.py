@@ -1,0 +1,33 @@
+"""frave_tpu_torch — the frave_tpu codec in PyTorch and CUDA, for one
+NVIDIA H100.
+
+A port of the JAX package ``frave_tpu``, which stays beside it as the
+reference. The host-side modules that import no JAX (fractal geometry and
+schedules, host entropy tables, the frif container, options, images) are
+imported from ``frave_tpu``, not copied; everything that ran on the TPU is
+rewritten here on torch tensors, and the TPU's Pallas kernels and the rANS
+encode loop are CUDA C++ kernels under ``csrc/`` (built with nvcc on
+first use, see ``ops/_build.py``).
+
+Public API (grid mode, the default of ``EncoderOptions``)::
+
+    blob = frave_tpu_torch.encode(img, opts=None, device="cuda")
+    out = frave_tpu_torch.decode(blob, device="cuda")   # a RasterImage
+
+``device="cpu"`` runs every kernel's plain PyTorch version instead (the
+tests use it); ``device="cuda"`` without CUDA raises.
+"""
+
+from frave_tpu.codec.options import EncoderOptions, EncoderQuality
+
+from .codec.decoder import FRIDecoder, decode
+from .codec.encoder import FRIEncoder, encode
+
+__all__ = [
+    "EncoderOptions",
+    "EncoderQuality",
+    "FRIEncoder",
+    "FRIDecoder",
+    "encode",
+    "decode",
+]

@@ -1,0 +1,24 @@
+"""Decoder driver: the port of frave_tpu/codec/decoder.py (FRIDecoder)
+for the torch backend. Parses through frave_tpu.codec.container."""
+
+from __future__ import annotations
+
+from frave_tpu.codec.container import deserialize
+from frave_tpu.images import RasterImage
+
+from .pipeline_torch import decode_pipeline_torch
+
+
+class FRIDecoder:
+    """Decodes grid-mode frif containers on one torch device."""
+
+    def __init__(self, device="cuda"):
+        self.device = device
+
+    def decode(self, data: bytes) -> RasterImage:
+        return decode_pipeline_torch(deserialize(data), self.device)
+
+
+def decode(blob: bytes, device="cuda") -> RasterImage:
+    """Decode a frif container into a RasterImage."""
+    return FRIDecoder(device).decode(blob)

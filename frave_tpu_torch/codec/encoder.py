@@ -1,0 +1,52 @@
+"""Encoder driver: the port of frave_tpu/codec/encoder.py (FRIEncoder)
+for the torch backend. Serializes through frave_tpu.codec.container."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import numpy as np
+
+from frave_tpu.codec.container import serialize
+from frave_tpu.codec.options import EncoderOptions
+from frave_tpu.images import ColorSpace, RasterImage
+
+from .pipeline_torch import encode_pipeline_torch
+
+
+class FRIEncoder:
+    """Encodes images on one torch device (grid mode)."""
+
+    def __init__(self, opts: Optional[EncoderOptions] = None, device="cuda"):
+        self.opts = opts or EncoderOptions()
+        self.device = device
+
+    def encode(
+        self,
+        data: Union[np.ndarray, RasterImage],
+        height: Optional[int] = None,
+        width: Optional[int] = None,
+        colorspace: Optional[ColorSpace] = None,
+    ) -> bytes:
+        if isinstance(data, RasterImage):
+            image = data
+        else:
+            arr = np.asarray(data, dtype=np.uint8)
+            if height is not None and width is not None:
+                arr = arr.reshape(height, width, arr.size // (height * width))
+            image = RasterImage.from_array(arr, colorspace)
+        if self.opts.color_transform == "trial":
+            raise NotImplementedError("color_transform='trial' is not ported")
+        return serialize(encode_pipeline_torch(image, self.opts, self.device))
+
+
+def encode(
+    data: Union[np.ndarray, RasterImage],
+    opts: Optional[EncoderOptions] = None,
+    device="cuda",
+    **kwargs,
+) -> bytes:
+    """Encode an image ([h, w] / [h, w, c] uint8 array or RasterImage) into
+    a frif container. `opts` is frave_tpu's EncoderOptions (its `backend`
+    field is not read: the port is the backend)."""
+    return FRIEncoder(opts, device).encode(data, **kwargs)

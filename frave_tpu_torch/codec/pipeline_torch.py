@@ -1,0 +1,678 @@
+"""The codec's device pipeline in PyTorch: the port of
+frave_tpu/codec/pipeline_jax.py, grid mode, one image (B=1).
+
+Encode (CodecProgram.encode_exec): channel transform -> leaf gather ->
+forward lifting + quantize (kernel A) -> statistics (the step-tensor
+gather below K = 2^18 symbols, the dense shift-plane path of
+grid_decode.build_grid_encode from there up) -> Gram/Cholesky predictor
+fits rounded to the f16 wire values -> contexts and zig-zag symbols ->
+exact histogram -> context tables -> reverse rANS scan (kernel C) ->
+stream compaction -> one packed int32 vector (headers + stream) that the
+host unpacks into a container.
+
+Decode (CodecProgram.decode_exec): table regeneration -> per wave: tap
+planes, contexts, the rANS rows -> dequantize + inverse lifting
+(kernel B) -> pixel gather and inverse transform.
+
+Everything the JAX program uploads once per shape (geometry gathers,
+masks, schedule tensors, Laplace grid, wave plans) is built from the same
+numpy host structures of frave_tpu and kept on the program's device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import threading
+import time
+from typing import Dict
+
+import numpy as np
+import torch
+
+from frave_tpu.codec.options import EncoderOptions, quantization_matrix
+from frave_tpu.entropy.tables import (
+    ALPHABET_SIZE,
+    CONTEXT_AMOUNT,
+    _GRID_LOG2,
+    _LAPLACE_GRID_ROWS,
+)
+from frave_tpu.fractal.geometry import BASE_FRAC_DEPTH, get_geometry
+from frave_tpu.fractal.schedule import (
+    default_num_lanes,
+    get_schedule,
+    grid_row_lane,
+    rate_adaptive_lanes,
+)
+from frave_tpu.images import (
+    AnsContextTables,
+    ChannelData,
+    ColorSpace,
+    CompressedImage,
+    RasterImage,
+)
+
+from ..entropy.tables_torch import finalize_contexts_device, select_scales_device
+from ..ops import torch_ops as T
+from ..ops.lifting import forward_lift_quantize
+from ..ops.rans_torch import encode_scan, pack_u16_pairs, stream_compact_grid
+
+_I64 = torch.int64
+_I32 = torch.int32
+_F32 = torch.float32
+# per channel: bits [CA] + off bitmask [CA, 32] + Laplace-grid scales [CA]
+_HDR_TABLES = CONTEXT_AMOUNT + CONTEXT_AMOUNT * (ALPHABET_SIZE // 32) + CONTEXT_AMOUNT
+# the statistics gate of the JAX program: the dense shift-plane path from
+# this many symbols up (FRAVE_GRID_ENC="force" always, "0" never)
+GRID_ENC_MIN_K = 1 << 18
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for `device`; a CUDA device without CUDA raises (the
+    port never falls back to the CPU on its own)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' requested but torch.cuda.is_available() is false"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise RuntimeError(f"unsupported device {dev}")
+    return dev
+
+
+class StageTimes:
+    """Optional per-stage wall times (ms) of one encode or decode: each
+    mark() synchronises the device and charges the time since the last
+    mark to its stage. Costs one synchronisation per stage when passed,
+    nothing when not."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.ms: Dict[str, float] = {}
+        self._t = None
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def start(self):
+        self._sync()
+        self._t = time.perf_counter()
+
+    def mark(self, name: str):
+        self._sync()
+        now = time.perf_counter()
+        self.ms[name] = self.ms.get(name, 0.0) + (now - self._t) * 1e3
+        self._t = now
+
+
+def _u32_to_i32(t: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 with the same 32 bits."""
+    t = t.to(_I64)
+    return (t - ((t >> 31) & 1) * (1 << 32)).to(_I32)
+
+
+def _sgn8(x):
+    """Mod-256 value -> signed representative in [-128, 127]."""
+    return ((x + 128) & 255) - 128
+
+
+def _transform_device(planes: torch.Tensor, tid: int) -> torch.Tensor:
+    """[3, HW] int32 raw RGB -> coding planes of transform `tid` (exact
+    integer twins of codec/channel_transform.py)."""
+    r, g, b = planes[0], planes[1], planes[2]
+    if tid == 0:
+        return planes
+    if tid == 1:
+        return torch.stack([(r - g) & 255, g, (b - g) & 255])
+    if tid == 2:
+        return torch.stack(
+            [torch.clamp(r - g + 128, 0, 255), g, torch.clamp(b - g + 128, 0, 255)]
+        )
+    if tid == 3:
+        co = (r - b) & 255
+        t = (b + (_sgn8(co) >> 1)) & 255
+        cg = (g - t) & 255
+        y = (t + (_sgn8(cg) >> 1)) & 255
+        return torch.stack([y, co, cg])
+    raise ValueError(f"unknown channel transform id {tid}")
+
+
+def _inverse_transform_device(planes: torch.Tensor, tid: int) -> torch.Tensor:
+    """Inverse of _transform_device on [3, HW] int32 coding planes."""
+    a, g, c = planes[0], planes[1], planes[2]
+    if tid == 0:
+        return planes
+    if tid == 1:
+        return torch.stack([(a + g) & 255, g, (c + g) & 255])
+    if tid == 2:
+        return torch.stack(
+            [torch.clamp(a + g - 128, 0, 255), g, torch.clamp(c + g - 128, 0, 255)]
+        )
+    if tid == 3:
+        t = (a - (_sgn8(c) >> 1)) & 255  # y, co, cg = a, g, c
+        gg = (c + t) & 255
+        b = (t - (_sgn8(g) >> 1)) & 255
+        r = (g + b) & 255
+        return torch.stack([r, gg, b])
+    raise ValueError(f"unknown channel transform id {tid}")
+
+
+def _gram_solve(G: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Regularised Cholesky solve of batched 6x6 normal equations. Where
+    the factorisation fails the result is NaN, as XLA's Cholesky gives."""
+    tr = torch.diagonal(G, dim1=-2, dim2=-1).sum(-1)
+    eps = tr * 1e-6 / 6.0 + 1e-12
+    eye = torch.eye(G.shape[-1], dtype=G.dtype, device=G.device)
+    L, info = torch.linalg.cholesky_ex(G + eps[..., None, None] * eye)
+    y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
+    x = torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
+    return torch.where((info != 0)[..., None], torch.full_like(x, float("nan")), x)
+
+
+def _width_feats(Xs: torch.Tensor) -> torch.Tensor:
+    """Width-model design features over tap values [..., 6] f32: bias +
+    the 5 gradient magnitudes."""
+    return torch.stack(
+        [
+            torch.ones_like(Xs[..., 0]),
+            torch.abs(Xs[..., 0] - Xs[..., 3]),
+            torch.abs(Xs[..., 1] - Xs[..., 2]),
+            torch.abs(Xs[..., 4] - Xs[..., 5]),
+            torch.abs(Xs[..., 1] - Xs[..., 5]),
+            torch.abs(Xs[..., 2] - Xs[..., 4]),
+        ],
+        dim=-1,
+    )
+
+
+def fit_predictors(Xs_l, ys_l, overrides):
+    """Per-group predictor fits: Xs_l / ys_l are per-group tap values
+    [C, k_g, 6] and targets [C, k_g] (f32). Value parameters by least
+    squares, rounded to the f16 wire values; width parameters fitted to
+    the |residuals| of those rounded values. `overrides` = (vp [C, F, 6],
+    wp, use_w) tensors pin the parameters instead (the width fit still
+    runs when only the value parameters are pinned). Returns (vparams,
+    wparams) [C, F, 6] f32 — ONE tensor each, read by both the symbol math
+    and the wire header. float32 matmuls run in full f32 (TF32 off)."""
+    vp_ovr, wp_ovr, use_w = overrides if overrides is not None else (None, None, False)
+    if vp_ovr is None:
+        G = torch.stack([torch.einsum("ckx,cky->cxy", X, X) for X in Xs_l], dim=1)
+        bv = torch.stack(
+            [torch.einsum("ckx,ck->cx", X, y) for X, y in zip(Xs_l, ys_l)], dim=1
+        )
+        vparams = _gram_solve(G, bv)
+    else:
+        vparams = vp_ovr
+    vparams = T.f16_wire_round(vparams)
+    if use_w:
+        wparams = wp_ovr
+    else:
+        Gws, bws = [], []
+        for g, (X, y) in enumerate(zip(Xs_l, ys_l)):
+            pred = torch.einsum("ckx,cx->ck", X, vparams[:, g])
+            rg = torch.abs(y - pred)
+            Fs = _width_feats(X)
+            Gws.append(torch.einsum("ckx,cky->cxy", Fs, Fs))
+            bws.append(torch.einsum("ckx,ck->cx", Fs, rg))
+        wparams = _gram_solve(torch.stack(Gws, dim=1), torch.stack(bws, dim=1))
+    return vparams, T.f16_wire_round(wparams)
+
+
+class CodecProgram:
+    """The codec for one (height, width, num_lanes, channels) on one
+    device, grid mode. Build with CodecProgram.from_host."""
+
+    @classmethod
+    def from_host(cls, height: int, width: int, nl: int, channels: int, device):
+        """Build every device constant from the numpy structures that
+        pipeline_jax.CodecProgram uploads: the pixel gather and masks, the
+        schedule tensors, pix_inv, the Laplace grid, the grid-row layout
+        and the wave plans. Shapes with no dense lattice maps (under ~32 px
+        a side) raise NotImplementedError: their step-tensor decoder is
+        not ported."""
+        from frave_tpu.fractal.lattice import DenseGridUnavailable
+
+        from .grid_decode import build_grid_decode, build_grid_encode, get_wave_devs
+
+        self = cls()
+        dev = resolve_device(device)
+        depth = BASE_FRAC_DEPTH
+        C, h, w = channels, height, width
+        geo = get_geometry(h, w, depth)
+        sched = get_schedule(h, w, depth, mode="grid")
+        _, _, R, rows_per_wave = grid_row_lane(sched, nl)
+        Tn, N = geo.num_tiles, geo.nodes_per_tile
+        n_slots = Tn * N
+        K = sched.num_symbols
+        self.height, self.width, self.depth = h, w, depth
+        self.nl, self.channels, self.device = nl, C, dev
+        self.num_tiles, self.num_symbols, self.rows = Tn, K, R
+        self.n_slots = n_slots
+        self.kc = K * C
+        self.num_fine = sched.num_fine
+        self.legacy_of_fine = sched.legacy_of_fine.astype(np.int64)
+        # + 1: per-channel expected-code-length f32 (rate-adaptive lanes)
+        self.chan_hdr = 12 * sched.num_fine + _HDR_TABLES + nl + 1
+        self.hdr_words = C * self.chan_hdr + 1  # + global stream total
+
+        def put(a, dt=_I64):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+
+        pg = geo.pixel_gather.astype(np.int64)  # [T, N]
+        self.leaf_safe = put(np.where(pg >= 0, pg, 0))
+        self.leaf_mask = put(pg >= 0, torch.bool)
+        self.leaf_mask_u8 = put(pg >= 0, torch.uint8)
+        self.sc = put(sched.sched_coef)
+        self.snbr_safe = put(
+            np.where(sched.sched_nbr >= 0, sched.sched_nbr, n_slots)
+        )
+        self.slf = put(sched.sched_lf, torch.bool)
+        self.sgrp = put(sched.sched_group)
+        self.sfbkt = put(sched.sched_fbkt)
+        self.lap = put(_LAPLACE_GRID_ROWS)  # [NUM_SCALES, 7, 1024]
+        self.glog2 = put(_GRID_LOG2, _F32)
+        self.gzero = put(_LAPLACE_GRID_ROWS == 0, _F32)
+        # predictor groups occupy contiguous schedule ranges (HF symbols)
+        hf = ~sched.sched_lf
+        grp = sched.sched_group.astype(np.int64)
+        self.group_ranges = []
+        for g in range(sched.num_fine):
+            idx = np.nonzero(hf & (grp == g))[0]
+            if idx.size == 0:
+                self.group_ranges.append((0, 0))
+                continue
+            lo, hi = int(idx.min()), int(idx.max()) + 1
+            if idx.size != hi - lo:
+                raise AssertionError(f"predictor group {g} not contiguous")
+            self.group_ranges.append((lo, hi))
+        # grid layout: every wave's symbols are contiguous in schedule
+        # order and fill rows of NL lanes back to back (grid_row_lane)
+        grid_k = np.full(R * nl, -1, dtype=np.int64)
+        pos = k0 = 0
+        for ws, rw in zip(sched.wave_sizes.tolist(), rows_per_wave.tolist()):
+            grid_k[pos : pos + ws] = np.arange(k0, k0 + ws)
+            pos += int(rw) * nl
+            k0 += ws
+        self.grid_k = put(np.maximum(grid_k, 0))
+        self.grid_valid = put(grid_k >= 0, torch.bool)  # [R * NL]
+        self.valid_grid = (
+            self.grid_valid.reshape(R, 1, nl).expand(R, C, nl).to(torch.uint8).contiguous()
+        )
+        # pixel assembly as a gather: pixels[p] = leaves[pix_inv[p]]
+        pgf = pg.reshape(-1)
+        inb = pgf >= 0
+        pix_inv = np.zeros(h * w, dtype=np.int64)
+        pix_inv[pgf[inb]] = np.nonzero(inb)[0]
+        self.pix_inv = put(pix_inv)
+        self.node_mask = put(geo.coef_mask, torch.bool)
+        self.node_mask_u8 = put(geo.coef_mask, torch.uint8)
+
+        try:
+            waves = get_wave_devs(geo, sched, nl, n_slots, dev)
+        except DenseGridUnavailable as e:
+            raise NotImplementedError(
+                f"{h}x{w}: no dense lattice grid at this shape; the "
+                "step-tensor decoder it needs is not ported"
+            ) from e
+        self.decode_fn = build_grid_decode(self, geo, waves)
+        genc = os.environ.get("FRAVE_GRID_ENC", "1")
+        self.grid_enc = None
+        if genc == "force" or (genc == "1" and K >= GRID_ENC_MIN_K):
+            self.grid_enc = build_grid_encode(self, geo, sched, waves)
+        return self
+
+    def _grid(self, a: torch.Tensor) -> torch.Tensor:
+        """[C, K] schedule-order values -> the [R, C, NL] lane grid (0 in
+        the padding slots)."""
+        g = torch.where(self.grid_valid[None], a[:, self.grid_k], torch.zeros_like(a[:, :1]))
+        return g.reshape(self.channels, self.rows, self.nl).permute(1, 0, 2).to(_I32).contiguous()
+
+    def _overrides(self, overrides):
+        """EncoderOptions.prediction_overrides(C) -> device tensors
+        (3-row legacy sets expand to the fine ids)."""
+        if overrides is None:
+            return None
+        vp_np, wp_np, use_w = overrides
+        F = self.num_fine
+
+        def exp(p):
+            p = np.asarray(p, dtype=np.float32)
+            if p.shape[-2] == 3 and F != 3:
+                p = p[..., self.legacy_of_fine, :]
+            if p.shape[-2:] != (F, 6):
+                raise ValueError(f"override params must have 3 or {F} rows")
+            return torch.as_tensor(np.ascontiguousarray(p), device=self.device)
+
+        return exp(vp_np), exp(wp_np), bool(use_w)
+
+    def _step_stats(self, qplane, overrides):
+        """The step-tensor statistics: one bulk neighbour gather, per-group
+        fits over static schedule ranges, per-symbol contexts."""
+        vals = qplane[:, self.snbr_safe]  # [C, K, 6]
+        target = qplane[:, self.sc]  # [C, K]
+        Xs_l = [vals[:, lo:hi].to(_F32) for lo, hi in self.group_ranges]
+        ys_l = [target[:, lo:hi].to(_F32) for lo, hi in self.group_ranges]
+        vparams, wparams = fit_predictors(Xs_l, ys_l, overrides)
+        buckets, preds = T.contexts(vals, self.slf, self.sgrp, vparams, wparams)
+        buckets = torch.where(self.sfbkt >= 0, self.sfbkt.to(buckets.dtype), buckets)
+        return vparams, wparams, buckets, T.pack_signed(target - preds)
+
+    def encode_exec(self, pixels, qdiv, overrides=None, tid: int = 0, stages=None):
+        """pixels [HW, C] uint8 on the device, qdiv [N] int32 -> (packed
+        [hdr_words + ceil(K*C/2)] int32, hist [C, CA, 1024] int32), the layout of
+        pipeline_jax's encode output: per channel vparams, wparams (f32
+        bits), bits, off-list bitmask, scale indices, lane states,
+        expected code length (f32 bits); then the stream total and the
+        u16 stream packed in pairs."""
+        C, Tn, nl = self.channels, self.num_tiles, self.nl
+        N = 1 << self.depth
+        dev = self.device
+        if stages is not None:
+            stages.start()
+        planes = pixels.reshape(-1, C).T.to(_I32)
+        if C == 3:
+            planes = _transform_device(planes, tid)
+        leaves = torch.where(
+            self.leaf_mask[None], planes[:, self.leaf_safe], torch.zeros((), dtype=_I32, device=dev)
+        ).reshape(C * Tn, N)
+        qcoef = forward_lift_quantize(leaves.contiguous(), self.leaf_mask_u8, qdiv, self.depth)
+        qplane = torch.cat(
+            [qcoef.reshape(C, self.n_slots), torch.zeros((C, 1), dtype=_I32, device=dev)], dim=1
+        )
+        if stages is not None:
+            stages.mark("encode/lift")
+        ovr = self._overrides(overrides)
+        if self.grid_enc is not None:
+            vparams, wparams, buckets, symbols = self.grid_enc(qplane, ovr)
+        else:
+            vparams, wparams, buckets, symbols = self._step_stats(qplane, ovr)
+        if stages is not None:
+            stages.mark("encode/stats")
+
+        # exact histogram of (channel, bucket, symbol)
+        chan = torch.arange(C, device=dev, dtype=_I64)[:, None]
+        ids = (chan * CONTEXT_AMOUNT + buckets.to(_I64)) * ALPHABET_SIZE + torch.clamp(
+            symbols.to(_I64), 0, ALPHABET_SIZE - 1
+        )
+        hist = torch.bincount(
+            ids.reshape(-1), minlength=C * CONTEXT_AMOUNT * ALPHABET_SIZE
+        ).reshape(C, CONTEXT_AMOUNT, ALPHABET_SIZE)
+        scales = select_scales_device(hist, self.glog2, self.gzero)
+        bits, freqs, cdfs, off_mask = finalize_contexts_device(hist, self.lap, scale_idx=scales)
+        # expected code length under the finalized tables (f32 per channel)
+        hf = hist.to(_F32)
+        exp_bits = torch.where(
+            hist > 0,
+            hf * (bits.to(_F32)[..., None] - torch.log2(torch.clamp(freqs.to(_F32), min=1.0))),
+            torch.zeros((), dtype=_F32, device=dev),
+        ).sum(dim=(1, 2))
+        if stages is not None:
+            stages.mark("encode/tables")
+
+        states, words, flags = encode_scan(
+            self._grid(symbols), self._grid(buckets), self.valid_grid,
+            freqs.to(_I32), cdfs.to(_I32), bits.to(_I32),
+        )
+        if stages is not None:
+            stages.mark("encode/rans")
+        stream, total = stream_compact_grid(words, flags, self.kc)
+        spk = pack_u16_pairs(stream)  # [ceil(K*C/2)]
+        om = off_mask.reshape(C, CONTEXT_AMOUNT, ALPHABET_SIZE // 32, 32).to(_I64)
+        ompk = (om << torch.arange(32, device=dev, dtype=_I64)).sum(-1)
+        headers = torch.cat(
+            [
+                vparams.contiguous().view(_I32).reshape(C, -1),
+                wparams.contiguous().view(_I32).reshape(C, -1),
+                bits.to(_I32),
+                _u32_to_i32(ompk).reshape(C, -1),
+                scales.to(_I32),
+                _u32_to_i32(states),
+                exp_bits.contiguous().view(_I32)[:, None],
+            ],
+            dim=1,
+        )
+        packed = torch.cat([headers.reshape(-1), total.to(_I32).reshape(1), spk])
+        if stages is not None:
+            stages.mark("encode/compact")
+        return packed, hist.to(_I32)
+
+    def decode_exec(self, states, stream, wire_bits, offpk, scales, vparams,
+                    wparams, qdiv, tid: int = 0, stages=None):
+        """Wire fields (device tensors: states [C, NL] int64, stream [W]
+        int64 u16 words zero-padded by >= C*NL, wire_bits / offpk /
+        scales int64, vparams / wparams [C, F, 6] f32, qdiv [N] int32) ->
+        pixels [C, HW] uint8, inverse channel transform applied."""
+        if stages is not None:
+            stages.start()
+        return self.decode_fn(
+            states, stream, wire_bits, offpk, scales, vparams, wparams, qdiv,
+            tid, stages=stages,
+        )
+
+
+_program_cache: Dict[tuple, CodecProgram] = {}
+_cache_lock = threading.Lock()
+
+
+def get_program(height, width, nl, channels, device) -> CodecProgram:
+    """Cached CodecProgram.from_host per (shape, lanes, channels, device)."""
+    dev = resolve_device(device)
+    key = (height, width, nl, channels, str(dev))
+    with _cache_lock:
+        p = _program_cache.get(key)
+    if p is None:
+        p = CodecProgram.from_host(height, width, nl, channels, dev)
+        with _cache_lock:
+            _program_cache[key] = p
+    return p
+
+
+def _qdiv_array(qm: np.ndarray, depth: int) -> np.ndarray:
+    """Per-haar-index divisor: qm[floor(log2(i + 1))]."""
+    n = 1 << depth
+    layers = np.floor(np.log2(np.arange(n) + 1)).astype(np.int32)
+    return np.asarray(qm, dtype=np.int32)[layers]
+
+
+def _unpack_channels(head: np.ndarray, prog: CodecProgram):
+    """One image's header row -> (channel_data list, est_payload_bytes)."""
+    C, nl = prog.channels, prog.nl
+    out = []
+    est_bits = 0.0
+    arr = head[: C * prog.chan_hdr].reshape(C, prog.chan_hdr)
+    npar = 6 * prog.num_fine
+    nmask = CONTEXT_AMOUNT * (ALPHABET_SIZE // 32)
+    for c in range(C):
+        v = arr[c]
+        o = 0
+        vp = v[o : o + npar].view(np.float32).reshape(-1, 6).copy(); o += npar
+        wp = v[o : o + npar].view(np.float32).reshape(-1, 6).copy(); o += npar
+        bits = v[o : o + CONTEXT_AMOUNT].copy(); o += CONTEXT_AMOUNT
+        ompk = v[o : o + nmask].view(np.uint32).reshape(CONTEXT_AMOUNT, -1); o += nmask
+        scales = v[o : o + CONTEXT_AMOUNT].copy(); o += CONTEXT_AMOUNT
+        states = v[o : o + nl].view(np.uint32).copy(); o += nl
+        est_bits += float(v[o : o + 1].view(np.float32)[0])
+        contexts = []
+        for b in range(CONTEXT_AMOUNT):
+            mask_bits = (
+                (ompk[b][:, None] >> np.arange(32, dtype=np.uint32)) & 1
+            ).astype(bool).reshape(-1)
+            contexts.append(
+                AnsContextTables(
+                    max_freq_bits=int(bits[b]),
+                    off_distribution_values=np.nonzero(mask_bits)[0].astype(np.uint16),
+                    freqs=None,
+                    cdf=None,
+                    scale_idx=int(scales[b]),
+                )
+            )
+        out.append(
+            ChannelData(
+                ans_contexts=contexts,
+                lane_states=states,
+                value_prediction_parameters=vp,
+                width_prediction_parameters=wp,
+            )
+        )
+    return out, est_bits / 8.0
+
+
+def _encode_dispatch(image: RasterImage, opts: EncoderOptions, device, stages=None):
+    """Upload + run the fused encode for one image; returns (prog,
+    (packed, hist) device tensors, qm, transform id)."""
+    from frave_tpu.codec.channel_transform import choose_transform
+
+    if opts.mode != "grid":
+        raise NotImplementedError(f"mode={opts.mode!r}: only grid mode is ported")
+    meta = image.metadata
+    C = meta.num_channels
+    lossless = opts.quality.name == "LOSSLESS"
+    tid = 0
+    if meta.colorspace == ColorSpace.RGB:
+        tid = choose_transform(image.data, opts.color_transform, lossless)
+    sched = get_schedule(meta.height, meta.width, mode="grid")
+    nl = opts.num_lanes or default_num_lanes(sched.num_symbols)
+    prog = get_program(meta.height, meta.width, nl, C, device)
+    qm = quantization_matrix(opts.quality)
+    qdiv = torch.as_tensor(_qdiv_array(qm, BASE_FRAC_DEPTH), device=prog.device)
+    pixels = torch.from_numpy(np.ascontiguousarray(image.data.reshape(-1, C))).to(prog.device)
+    out = prog.encode_exec(pixels, qdiv, opts.prediction_overrides(C), tid, stages)
+    return prog, out, qm, tid
+
+
+def _encode_finish(prog, packed, qm, meta, tid, opts) -> CompressedImage:
+    """Fetch the headers, then exactly the stream words they announce, and
+    unpack them into a container."""
+    hw = prog.hdr_words
+    head = packed[:hw].cpu().numpy()
+    total = int(head[hw - 1])
+    need = (total + 1) // 2
+    tail = packed[hw : hw + need].cpu().numpy()
+    stream = tail.view(np.uint16)[:total].copy()
+    channel_data, est_payload = _unpack_channels(head, prog)
+    C = prog.channels
+    return CompressedImage(
+        metadata=meta,
+        channel_data=list(channel_data) + [None] * (3 - C),
+        quality=opts.quality.value,
+        num_lanes=prog.nl,
+        quantization_matrix=np.asarray(qm, dtype=np.uint16),
+        mode="grid",
+        stream=stream,
+        transform=tid,
+        est_payload_bytes=est_payload,
+    )
+
+
+def _maybe_reencode_flat(image, ci, opts, device) -> CompressedImage:
+    """Rate fix for flat content: where the per-lane wire overhead would
+    dominate the expected payload (computed on the device), re-encode at
+    the rate-adaptive lane count (schedule.rate_adaptive_lanes)."""
+    if opts.num_lanes is not None or ci.est_payload_bytes is None:
+        return ci  # caller pinned lanes (also the re-encode's guard)
+    nl = rate_adaptive_lanes(ci.num_lanes, ci.est_payload_bytes, ci.metadata.num_channels)
+    if nl >= ci.num_lanes:
+        return ci
+    return encode_pipeline_torch(image, dataclasses.replace(opts, num_lanes=nl), device)
+
+
+def encode_pipeline_torch(
+    image: RasterImage, opts: EncoderOptions, device="cuda", stages=None
+) -> CompressedImage:
+    """Encode one image on `device` into a CompressedImage."""
+    prog, (packed, _hist), qm, tid = _encode_dispatch(image, opts, device, stages)
+    ci = _encode_finish(prog, packed, qm, image.metadata, tid, opts)
+    if stages is not None:
+        stages.mark("encode/fetch")
+    return _maybe_reencode_flat(image, ci, opts, device)
+
+
+def assemble_wire_batch(images, nl: int):
+    """Stack a same-shape batch's container fields into the arrays
+    decode_exec consumes: (states, streams, bits, offpk, scales, vparams,
+    wparams, qdiv, tids) as numpy arrays; streams zero-padded by C*NL
+    words past the longest (the decode row's read window)."""
+    meta = images[0].metadata
+    C = meta.num_channels
+    B = len(images)
+    maxw = max([1] + [int(np.asarray(im.stream).shape[0]) for im in images])
+    Wpad = maxw + C * nl
+    sched = get_schedule(meta.height, meta.width, mode=images[0].mode)
+    F = sched.num_fine
+    bits = np.zeros((B, C, CONTEXT_AMOUNT), dtype=np.int32)
+    offpk = np.zeros((B, C, CONTEXT_AMOUNT, ALPHABET_SIZE // 32), dtype=np.uint32)
+    # legacy (v<=8) containers select the per-bucket grid row
+    scales = np.broadcast_to(
+        np.arange(CONTEXT_AMOUNT, dtype=np.int32), (B, C, CONTEXT_AMOUNT)
+    ).copy()
+    states = np.zeros((B, C, nl), dtype=np.uint32)
+    streams = np.zeros((B, Wpad), dtype=np.uint16)
+    vparams = np.zeros((B, C, F, 6), dtype=np.float32)
+    wparams = np.zeros((B, C, F, 6), dtype=np.float32)
+    for b, im in enumerate(images):
+        st = np.asarray(im.stream, dtype=np.uint16)
+        streams[b, : st.shape[0]] = st
+        for c in range(C):
+            cd = im.channel_data[c]
+            for k, t in enumerate(cd.ans_contexts):
+                bits[b, c, k] = t.max_freq_bits
+                if t.scale_idx >= 0:
+                    scales[b, c, k] = t.scale_idx
+                off = np.asarray(t.off_distribution_values, dtype=np.int64)
+                if off.size:
+                    np.bitwise_or.at(
+                        offpk[b, c, k],
+                        off // 32,
+                        np.uint32(1) << (off % 32).astype(np.uint32),
+                    )
+            states[b, c] = np.asarray(cd.lane_states, dtype=np.uint32)
+            vparams[b, c] = sched.expand_params(cd.value_prediction_parameters)
+            wparams[b, c] = sched.expand_params(cd.width_prediction_parameters)
+    qdiv = np.stack(
+        [
+            _qdiv_array(np.asarray(im.quantization_matrix, dtype=np.int32), BASE_FRAC_DEPTH)
+            for im in images
+        ]
+    )
+    tids = np.asarray([im.transform for im in images], dtype=np.int32)
+    return states, streams, bits, offpk, scales, vparams, wparams, qdiv, tids
+
+
+def decode_pipeline_torch(image: CompressedImage, device="cuda", stages=None) -> RasterImage:
+    """Decode one grid-mode container on `device`."""
+    if image.mode != "grid":
+        raise NotImplementedError(f"mode={image.mode!r}: only grid mode is ported")
+    meta = image.metadata
+    C, nl = meta.num_channels, image.num_lanes
+    prog = get_program(meta.height, meta.width, nl, C, device)
+    states, streams, bits, offpk, scales, vp, wp, qdiv, tids = assemble_wire_batch([image], nl)
+    dev = prog.device
+
+    def put(a, dt=_I64):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+
+    pixels = prog.decode_exec(
+        put(states[0].astype(np.int64)),
+        put(streams[0].astype(np.int64)),
+        put(bits[0]),
+        put(offpk[0].astype(np.int64)),
+        put(scales[0]),
+        put(vp[0], _F32),
+        put(wp[0], _F32),
+        put(qdiv[0], _I32),
+        int(tids[0]),
+        stages=stages,
+    )
+    return _decode_finish(pixels, meta, C, stages)
+
+
+def _decode_finish(pixels: torch.Tensor, meta, C: int, stages=None) -> RasterImage:
+    """Fetch [C, HW] device pixels and wrap them as a RasterImage."""
+    px = pixels.cpu().numpy()
+    if stages is not None:
+        stages.mark("decode/fetch")
+    return RasterImage(metadata=meta, data=px.T.reshape(meta.height, meta.width, C))

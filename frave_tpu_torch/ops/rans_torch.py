@@ -1,0 +1,197 @@
+"""Interleaved-lane rANS in PyTorch: the port of frave_tpu/ops/rans_jax.py.
+
+Same wire semantics as the numpy host coder (frave_tpu/ops/rans.py):
+32-bit lane states in [2^16, 2^32), 16-bit renorm words, per-context
+scale bits <= 14, so each symbol moves at most one word either way. The
+u32 states are carried in int64 (torch has no full uint32 arithmetic)
+and masked back to 32 bits where a wrap could occur.
+
+  * encode_scan — the reverse scan over the [R, C, NL] symbol grid:
+    kernel C (csrc/rans_encode.cu frave_rans_encode) on the card, the
+    plain row loop encode_scan_plain on the CPU.
+  * stream_compact_grid — grid mode's decode order IS the flat
+    [R, C, NL] order, so compaction is an exclusive prefix sum over the
+    emit flags plus one scatter.
+  * pack_u16_pairs — the u16 stream as u32 words (bitcast of pairs).
+  * decode_tables / decode_row — the row step of the decoder: a
+    per-(channel, context) slot -> symbol table of 2^14 entries resolves
+    the symbol ("last symbol whose cdf <= slot": zero-frequency symbols
+    own no slot), and renorm words are handed out in channel-major,
+    lane-minor rank order from the global stream.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from frave_tpu.entropy.tables import ALPHABET_SIZE, MAX_FREQ_BITS_CAP
+
+from . import _build
+
+RANS_L = 1 << 16
+WORD_BITS = 16
+_U32 = 0xFFFFFFFF
+
+
+def _check_grid(name, t, shape, dtypes):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def encode_scan_plain(sym_grid, bkt_grid, valid_grid, freqs, cdfs, scale_bits):
+    """The reverse-scan rANS encode as a row loop over [C, NL] tensors.
+    Returns (states [C, NL] int64 in [0, 2^32), words [R, C, NL] int16
+    (u16 bits), flags [R, C, NL] bool)."""
+    R, C, NL = sym_grid.shape
+    ca = freqs.shape[-2]
+    dev = sym_grid.device
+    f = freqs.to(torch.int64).reshape(-1)
+    cd = cdfs.to(torch.int64).reshape(-1)
+    b = scale_bits.to(torch.int64).reshape(-1)
+    chan = torch.arange(C, device=dev, dtype=torch.int64)[:, None]
+    x = torch.full((C, NL), RANS_L, dtype=torch.int64, device=dev)
+    words = torch.empty((R, C, NL), dtype=torch.int64, device=dev)
+    flags = torch.empty((R, C, NL), dtype=torch.bool, device=dev)
+    one = torch.ones((), dtype=torch.int64, device=dev)
+    for r in range(R - 1, -1, -1):
+        v = valid_grid[r].to(torch.bool)
+        s = torch.clamp(sym_grid[r].to(torch.int64), 0, ALPHABET_SIZE - 1)
+        k = torch.clamp(bkt_grid[r].to(torch.int64), 0, ca - 1)
+        ctx = chan * ca + k
+        t = ctx * ALPHABET_SIZE + s
+        fr = torch.where(v, f[t], one)
+        cdv = torch.where(v, cd[t], 0 * one)
+        bi = torch.where(v, b[ctx], 8 * one)
+        emit = v & ((x >> (32 - bi)) >= fr)
+        words[r] = x & 0xFFFF
+        flags[r] = emit
+        x1 = torch.where(emit, x >> WORD_BITS, x)
+        q = torch.div(x1, fr, rounding_mode="floor")
+        x2 = ((q << bi) + (x1 - q * fr) + cdv) & _U32
+        x = torch.where(v, x2, x1)
+    words = (words - ((words >> 15) & 1) * (1 << 16)).to(torch.int16)
+    return x, words, flags
+
+
+def encode_scan(sym_grid, bkt_grid, valid_grid, freqs, cdfs, scale_bits):
+    """Reverse-scan rANS encode (replaces rans_jax.encode_scan).
+
+    sym_grid / bkt_grid [R, C, NL] int32 (zig-zag symbols / context
+    buckets in schedule order), valid_grid [R, C, NL] uint8/bool,
+    freqs / cdfs [C, CA, 1024] int32, scale_bits [C, CA] int32.
+    Returns (final states [C, NL] int64 in [0, 2^32), words [R, C, NL]
+    int16 holding the u16 words, flags [R, C, NL] bool): words[r] is
+    valid where flags[r]; decode consumes flagged words in increasing r."""
+    R, C, NL = sym_grid.shape
+    ca = freqs.shape[-2]
+    i32 = (torch.int32,)
+    _check_grid("sym_grid", sym_grid, (R, C, NL), i32)
+    _check_grid("bkt_grid", bkt_grid, (R, C, NL), i32)
+    _check_grid("valid_grid", valid_grid, (R, C, NL), (torch.uint8, torch.bool))
+    _check_grid("freqs", freqs, (C, ca, ALPHABET_SIZE), i32)
+    _check_grid("cdfs", cdfs, (C, ca, ALPHABET_SIZE), i32)
+    _check_grid("scale_bits", scale_bits, (C, ca), i32)
+    dev = sym_grid.device
+    if dev.type == "cpu":
+        return encode_scan_plain(
+            sym_grid, bkt_grid, valid_grid, freqs, cdfs, scale_bits
+        )
+    if dev.type != "cuda":
+        raise RuntimeError(f"no kernel for device {dev}")
+    ops = (bkt_grid, valid_grid, freqs, cdfs, scale_bits)
+    if any(t.device != dev for t in ops):
+        raise ValueError(f"all operands must lie on {dev}")
+    lib = _build.load_library()
+    valid = valid_grid.view(torch.uint8) if valid_grid.dtype == torch.bool else valid_grid
+    words = torch.empty((R, C, NL), dtype=torch.int16, device=dev)
+    flags = torch.empty((R, C, NL), dtype=torch.uint8, device=dev)
+    states = torch.empty((C, NL), dtype=torch.int32, device=dev)
+    code = lib.frave_rans_encode(
+        sym_grid.data_ptr(), bkt_grid.data_ptr(), valid.data_ptr(),
+        freqs.data_ptr(), cdfs.data_ptr(), scale_bits.data_ptr(),
+        words.data_ptr(), flags.data_ptr(), states.data_ptr(),
+        R, C, NL, ca, _build.current_stream(dev),
+    )
+    _build.check(code, "frave_rans_encode")
+    encode_scan.launches += 1
+    return states.to(torch.int64) & _U32, words, flags.view(torch.bool)
+
+
+encode_scan.launches = 0
+
+
+def stream_compact_grid(words: torch.Tensor, flags: torch.Tensor, kc: int):
+    """Pack the flagged words of a [R, C, NL] emission grid, in flat
+    (decode) order, into one stream: exclusive prefix sum of the flags
+    gives each flagged word its position; one scatter writes it (the
+    unflagged ones all land on the discard slot kc). Returns (stream [kc]
+    int16 with a zero tail, total words as a 0-d int64 tensor)."""
+    f = flags.reshape(-1)
+    w = words.reshape(-1)
+    csum = torch.cumsum(f.to(torch.int64), dim=0)
+    dst = torch.where(f, csum - 1, torch.full_like(csum, kc))
+    buf = torch.zeros(kc + 1, dtype=words.dtype, device=words.device)
+    buf.scatter_(0, dst, w)
+    total = csum[-1] if csum.numel() else csum.new_zeros(())
+    return buf[:kc], total
+
+
+def pack_u16_pairs(stream: torch.Tensor) -> torch.Tensor:
+    """[W] int16 (u16 words) -> [ceil(W/2)] int32 with word 2i in the low
+    half and word 2i+1 in the high half (the JAX bitcast pack)."""
+    if stream.shape[0] % 2:
+        stream = torch.cat([stream, stream.new_zeros(1)])
+    return stream.contiguous().view(torch.int32)
+
+
+def decode_tables(freqs: torch.Tensor, cdfs: torch.Tensor, scale_bits: torch.Tensor):
+    """Regenerated tables [C, CA, 1024] / [C, CA] -> the decode row's
+    lookup tables: slot -> symbol [C, CA, 2^14] int64 (the last symbol
+    whose cdf <= slot; slots >= 2^bits are never read), and freqs, cdfs,
+    bits as int64."""
+    C, ca, _ = cdfs.shape
+    cd = cdfs.to(torch.int64).contiguous()
+    slots = torch.arange(1 << MAX_FREQ_BITS_CAP, device=cd.device, dtype=torch.int64)
+    slot_sym = (
+        torch.searchsorted(cd, slots.expand(C, ca, -1).contiguous(), right=True)
+        - 1
+    )
+    return {
+        "slot_sym": slot_sym.clamp(0, ALPHABET_SIZE - 1),
+        "freqs": freqs.to(torch.int64),
+        "cdfs": cd,
+        "bits": scale_bits.to(torch.int64),
+    }
+
+
+def decode_row(x, gptr, buckets, active, stream, tabs):
+    """One rANS decode row for all channels x lanes.
+
+    x [C, NL] int64 lane states; gptr 0-d int64 stream position; buckets
+    [C, NL] int64 context ids (0..CA-1); active [NL] bool; stream [W]
+    int64 u16 words, zero-padded by >= C*NL past its end. Every index is
+    clamped, so a corrupt stream decodes to garbage, never out of bounds.
+    Returns (sym [C, NL] int64, x', gptr')."""
+    C, NL = x.shape
+    ca = tabs["bits"].shape[-1]
+    chan = torch.arange(C, device=x.device, dtype=torch.int64)[:, None]
+    ctx = chan * ca + buckets
+    bi = tabs["bits"].reshape(-1)[ctx]
+    slot = x & ((1 << bi) - 1)
+    sym = tabs["slot_sym"].reshape(-1)[(ctx << MAX_FREQ_BITS_CAP) + slot]
+    t = ctx * ALPHABET_SIZE + sym
+    fr = tabs["freqs"].reshape(-1)[t]
+    cd = tabs["cdfs"].reshape(-1)[t]
+    x_new = (fr * (x >> bi) + slot - cd) & _U32
+    need = active[None, :] & (x_new < RANS_L)
+    nf = need.reshape(-1).to(torch.int64)
+    pos = torch.cumsum(nf, dim=0) - 1  # channel-major, lane-minor ranks
+    idx = torch.clamp(gptr + pos, 0, stream.shape[0] - 1)
+    w = stream[idx].reshape(C, NL)
+    x_new = torch.where(need, ((x_new << WORD_BITS) | w) & _U32, x_new)
+    x = torch.where(active[None, :], x_new, x)
+    return sym, x, gptr + nf.sum()

@@ -1,0 +1,27 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Imports no JAX (the machine with the card has none); skips where
+torch.cuda.is_available() is false. Run it there with
+`python -m pytest tests/test_torch_cuda.py -q`."""
+
+import pytest
+import torch
+
+from frave_tpu_torch import kernel_check
+
+# the slice's shapes: lifting rows x mask rows (256x256 gray: 160 tiles;
+# 768x512 RGB: 3 x 844 tiles), rANS grids R x C x NL
+SHAPES = {
+    "forward_lift_quantize": [(7, 7), (160, 160), (2532, 844)],
+    "dequantize_inverse_lift": [(7, 7), (160, 160), (2532, 844)],
+    "encode_scan": [(5, 1, 32), (133, 1, 512), (200, 3, 2048)],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_cuda_kernel_matches_plain(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    for shape in SHAPES[name]:
+        res = kernel_check.check(name, shape, torch.device("cuda"))
+        assert res["max_abs_err"] == 0, res

@@ -1,0 +1,210 @@
+"""frave_tpu_torch elementwise ops and lifting kernels against frave_tpu.
+
+The same seeded numpy inputs go through jax_ops (and the Pallas lifting
+kernels in interpret mode) and the port's functions on the CPU; every
+comparison is bit-exact: the ops are integer or a fixed f32 op sequence.
+The kernels' own check on the card is in test_torch_rans.py.
+"""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from frave_tpu.ops import jax_ops as J
+from frave_tpu_torch.ops import lifting as L
+from frave_tpu_torch.ops import torch_ops as T
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _bits(x):
+    return np.asarray(x, dtype=np.float32).view(np.int32)
+
+
+def test_trunc_div_negatives():
+    rng = np.random.default_rng(0)
+    a = rng.integers(-5000, 5000, size=4096).astype(np.int32)
+    a[:6] = [-1, -2, -3, -7, 0, 7]
+    for q in (1, 2, 3, 7, 24):
+        ref = np.asarray(J.trunc_div(jnp.asarray(a), q))
+        np.testing.assert_array_equal(T.trunc_div(_t(a), q).numpy(), ref)
+    assert T.trunc_div(torch.tensor([-7], dtype=torch.int32), 2).item() == -3
+
+
+def test_f16_wire_round_special_values():
+    rng = np.random.default_rng(1)
+    sub = np.float32(2.0 ** -24)
+    special = np.array(
+        [
+            0.0, -0.0, np.inf, -np.inf, np.nan, 65504.0, 65519.99, 65520.0,
+            -65520.0, 1e10, 6.1035156e-05, 6.0975552e-05, 5.96e-08, 2.98e-08,
+            2.99e-08, sub, -sub, 1.5 * sub, 2.5 * sub, 1e-30, -1e-30, 1.0,
+            1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11, 0.333333, -7.4609375,
+        ],
+        dtype=np.float32,
+    )
+    payload_nan = np.array([0x7FC12345, 0xFFA00001], dtype=np.uint32).view(np.float32)
+    subnormals = (rng.integers(0, 2048, 512) * (sub / 4)).astype(np.float32)
+    f32_denorm = (rng.integers(1, 1 << 23, 64).astype(np.uint32)).view(np.float32)
+    normals = rng.normal(0, 30, 4096).astype(np.float32)
+    rand_bits = rng.integers(0, 1 << 32, 4096, dtype=np.uint64).astype(np.uint32).view(np.float32)
+    x = np.concatenate([special, payload_nan, subnormals, -subnormals, f32_denorm,
+                        normals, rand_bits])
+    ref = np.asarray(J.f16_wire_round(jnp.asarray(x)))
+    out = T.f16_wire_round(_t(x)).numpy()
+    np.testing.assert_array_equal(_bits(out), _bits(ref))
+    # and the IEEE conversion itself wherever it is defined (not NaN)
+    ok = ~np.isnan(x)
+    with np.errstate(over="ignore"):
+        ieee = x[ok].astype(np.float16).astype(np.float32)
+    np.testing.assert_array_equal(_bits(out[ok]), _bits(ieee))
+
+
+def test_assign_bucket_nan_and_negative_widths():
+    from frave_tpu.entropy.tables import BUCKET_EDGES
+
+    edges = np.asarray(BUCKET_EDGES, dtype=np.float32)
+    w = np.concatenate(
+        [
+            np.array([np.nan, -np.nan, -1.0, -0.0, 0.0, np.inf, -np.inf], np.float32),
+            edges,
+            np.nextafter(edges, np.float32(-np.inf)),
+            np.random.default_rng(2).uniform(-5, 60, 2048).astype(np.float32),
+        ]
+    )
+    ref = np.asarray(J.assign_bucket_f32(jnp.asarray(w)))
+    np.testing.assert_array_equal(T.assign_bucket_f32(_t(w)).numpy(), ref)
+
+
+@pytest.mark.parametrize("lf", [False, True])
+def test_contexts_static_bit_exact(lf):
+    rng = np.random.default_rng(3 + lf)
+    vals = rng.integers(-511, 512, size=(3, 500, 6)).astype(np.int32)
+    vals[:, :40] = 0  # flat contexts (all gradient features zero)
+    vp = rng.normal(0, 0.5, size=(3, 1, 6)).astype(np.float32)
+    wp = rng.normal(0, 0.3, size=(3, 1, 6)).astype(np.float32)
+    wp[0, 0, 0] = np.nan  # NaN widths land in bucket 0
+    vp[1, 0, 2] = np.inf  # inf predictions clamp
+    rb, rp = J.contexts_static(jnp.asarray(vals), jnp.asarray(vp), jnp.asarray(wp), lf)
+    b, p = T.contexts_static(_t(vals), _t(vp), _t(wp), lf)
+    np.testing.assert_array_equal(b.numpy(), np.asarray(rb))
+    np.testing.assert_array_equal(p.numpy(), np.asarray(rp))
+
+
+def test_contexts_per_symbol_groups():
+    rng = np.random.default_rng(5)
+    K, F = 700, 11
+    vals = rng.integers(-300, 300, size=(2, K, 6)).astype(np.int32)
+    lf = rng.random(K) < 0.3
+    grp = rng.integers(0, F, K).astype(np.int32)
+    vp = rng.normal(0, 0.5, size=(2, F, 6)).astype(np.float32)
+    wp = rng.normal(0, 0.5, size=(2, F, 6)).astype(np.float32)
+    rb, rp = jax.vmap(lambda v, a, b: J.contexts(v, jnp.asarray(lf), jnp.asarray(grp), a, b))(
+        jnp.asarray(vals), jnp.asarray(vp), jnp.asarray(wp)
+    )
+    b, p = T.contexts(_t(vals), _t(lf), _t(grp.astype(np.int64)), _t(vp), _t(wp))
+    np.testing.assert_array_equal(b.numpy(), np.asarray(rb))
+    np.testing.assert_array_equal(p.numpy(), np.asarray(rp))
+
+
+def test_pack_unpack_signed():
+    k = np.arange(-600, 600, dtype=np.int32)
+    packed = T.pack_signed(_t(k))
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(J.pack_signed(jnp.asarray(k))))
+    s = np.arange(0, 1024, dtype=np.int32)
+    np.testing.assert_array_equal(
+        T.unpack_signed(_t(s)).numpy(), np.asarray(J.unpack_signed(jnp.asarray(s)))
+    )
+    np.testing.assert_array_equal(T.unpack_signed(packed).numpy(), k)
+
+
+def _run_interpret(fn, *args):
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        return fn(*args)
+
+
+@pytest.mark.parametrize("depth,T_", [(9, 130), (7, 64)])
+def test_forward_lift_quantize_plain(depth, T_):
+    from frave_tpu.ops.pallas_lifting import forward_lift_quantize
+
+    rng = np.random.default_rng(10 + depth)
+    n = 1 << depth
+    leaves = rng.integers(0, 256, size=(T_, n)).astype(np.int32)
+    mask = rng.random((T_, n)) > 0.15
+    leaves = np.where(mask, leaves, 0).astype(np.int32)
+    qdiv = np.ones(n, np.int32)
+    qdiv[n // 2 :] = 3
+    qdiv[n // 4 : n // 2] = 2
+    ref = np.asarray(
+        J.quantize(
+            J.forward_lifting(jnp.asarray(leaves)[None], jnp.asarray(mask)[None], depth),
+            jnp.asarray(qdiv)[None, None, :],
+        )
+    )[0]
+    pallas = np.asarray(
+        _run_interpret(
+            forward_lift_quantize, jnp.asarray(leaves.T), jnp.asarray(mask.T),
+            jnp.asarray(qdiv), depth,
+        )
+    ).T
+    np.testing.assert_array_equal(pallas, ref)
+    before = L.forward_lift_quantize.launches
+    out = L.forward_lift_quantize(_t(leaves), _t(mask.astype(np.uint8)), _t(qdiv), depth)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    # the mask is per tile: two "channels" of the same tiles share it
+    out2 = L.forward_lift_quantize(
+        _t(np.concatenate([leaves, leaves])), _t(mask), _t(qdiv), depth
+    )
+    np.testing.assert_array_equal(out2.numpy(), np.concatenate([ref, ref]))
+    assert L.forward_lift_quantize.launches == before  # CPU: no kernel
+
+
+@pytest.mark.parametrize("depth,T_", [(9, 130), (7, 64)])
+def test_dequantize_inverse_lift_plain(depth, T_):
+    from frave_tpu.ops.pallas_lifting import dequantize_inverse_lift
+
+    rng = np.random.default_rng(20 + depth)
+    n = 1 << depth
+    qcoef = rng.integers(-80, 80, size=(T_, n)).astype(np.int32)
+    node_mask = rng.random((T_, n)) > 0.1
+    leaf_mask = rng.random((T_, n)) > 0.1
+    qdiv = np.ones(n, np.int32)
+    qdiv[n // 4 :] = 2
+    qdiv[n // 2 :] = 5
+    ref = np.asarray(
+        J.inverse_lifting(
+            J.dequantize(jnp.asarray(qcoef)[None], jnp.asarray(qdiv)[None, None, :]),
+            depth, jnp.asarray(node_mask)[None], jnp.asarray(leaf_mask)[None],
+        )
+    )[0]
+    pallas = np.asarray(
+        _run_interpret(
+            dequantize_inverse_lift, jnp.asarray(qcoef.T), jnp.asarray(node_mask.T),
+            jnp.asarray(leaf_mask.T), jnp.asarray(qdiv), depth,
+        )
+    ).T
+    np.testing.assert_array_equal(pallas, ref)
+    out = L.dequantize_inverse_lift(
+        _t(qcoef), _t(node_mask), _t(leaf_mask.astype(np.uint8)), _t(qdiv), depth
+    )
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def test_wrappers_reject_bad_operands():
+    x = torch.zeros((4, 512), dtype=torch.int32)
+    m = torch.ones((4, 512), dtype=torch.uint8)
+    q = torch.ones(512, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        L.forward_lift_quantize(x.to(torch.int64), m, q, 9)
+    with pytest.raises(ValueError):
+        L.forward_lift_quantize(x[:, :256], m, q, 9)
+    with pytest.raises(ValueError):
+        L.forward_lift_quantize(x, m[:3], q, 9)
+    with pytest.raises(ValueError):
+        L.dequantize_inverse_lift(x.T.contiguous().T, m, m, q, 9)
