@@ -5,9 +5,10 @@ A port of the JAX package ``frave_tpu``, which stays beside it as the
 reference. The host-side modules that import no JAX (fractal geometry and
 schedules, host entropy tables, the frif container, options, images) are
 imported from ``frave_tpu``, not copied; everything that ran on the TPU is
-rewritten here on torch tensors, and the TPU's Pallas kernels and the rANS
-encode loop are CUDA C++ kernels under ``csrc/`` (built with nvcc on
-first use, see ``ops/_build.py``).
+rewritten here on torch tensors, and the TPU's Pallas kernels (the two
+lifting kernels and the whole-wave rANS decode) and the rANS encode loop
+are CUDA C++ kernels under ``csrc/`` (built with nvcc on first use, see
+``ops/_build.py``).
 
 Public API (grid mode, the default of ``EncoderOptions``)::
 

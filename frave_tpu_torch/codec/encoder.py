@@ -3,6 +3,7 @@ for the torch backend. Serializes through frave_tpu.codec.container."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Union
 
 import numpy as np
@@ -35,9 +36,26 @@ class FRIEncoder:
             if height is not None and width is not None:
                 arr = arr.reshape(height, width, arr.size // (height * width))
             image = RasterImage.from_array(arr, colorspace)
-        if self.opts.color_transform == "trial":
-            raise NotImplementedError("color_transform='trial' is not ported")
+        if self.opts.color_transform == "trial" and image.metadata.colorspace == ColorSpace.RGB:
+            return self._encode_trial(image)
         return serialize(encode_pipeline_torch(image, self.opts, self.device))
+
+    def _encode_trial(self, image: RasterImage) -> bytes:
+        """color_transform="trial" (frave_tpu FRIEncoder._encode_trial):
+        encode with every candidate transform and keep the smallest
+        container (the first of equal sizes). Gray images never get here:
+        they have no transform to try."""
+        if self.opts.quality.name == "LOSSLESS":
+            cands = ("none", "subtract-green", "ycocg")
+        else:
+            cands = ("none", "subtract-green")
+        best = None
+        for ctf in cands:
+            opts = dataclasses.replace(self.opts, color_transform=ctf)
+            blob = serialize(encode_pipeline_torch(image, opts, self.device))
+            if best is None or len(blob) < len(best):
+                best = blob
+        return best
 
 
 def encode(

@@ -11,9 +11,10 @@ wave, outside the row loop.
 
 Differences from the JAX module, none of which changes an integer:
 value grids are int32 per channel ([C, A, B], fill 0) instead of the
-TPU's packed 10-bit u32 (RGB) / int16 (gray) planes, and the per-row
-rANS step is ops/rans_torch.decode_row (slot -> symbol table lookups)
-instead of the bf16 one-hot staircase.
+TPU's packed 10-bit u32 (RGB) / int16 (gray) planes, and each wave's
+rANS rows are one ops/rans_torch.decode_scan_wave call (kernel 3 on the
+card: an integer cdf search and a block scan for the word ranks) instead
+of the XLA scan of bf16 one-hot staircase steps.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from ..entropy.tables_torch import finalize_contexts_device
 from ..fractal.gridplan_torch import apply_plan
 from ..ops import torch_ops as T
 from ..ops.lifting import dequantize_inverse_lift
-from ..ops.rans_torch import decode_row, decode_tables
+from ..ops.rans_torch import decode_scan_wave, decode_tables
 
 _I64 = torch.int64
 
@@ -238,11 +239,11 @@ def build_grid_decode(prog, geo, waves: List[WaveDev]):
             C, CONTEXT_AMOUNT, ALPHABET_SIZE
         )
         zero_hist = torch.zeros((C, CONTEXT_AMOUNT, ALPHABET_SIZE), dtype=_I64, device=dev)
-        bits, freqs, cdfs, _ = finalize_contexts_device(
+        bits, _, cdfs, _ = finalize_contexts_device(
             zero_hist, prog.lap, bits0=wire_bits, off_mask_in=off_mask,
             scale_idx=scpk,
         )
-        tabs = decode_tables(freqs, cdfs, bits)
+        tabs = decode_tables(cdfs, bits)
         if stages is not None:
             stages.mark("decode/tables")
 
@@ -254,13 +255,10 @@ def build_grid_decode(prog, geo, waves: List[WaveDev]):
             if wd.rows == 0:
                 return preds.new_zeros((C, 0)), x, gptr
             pad = wd.rows * nl - wd.kw
-            bk = torch.nn.functional.pad(buckets.to(_I64), (0, pad))
-            bk = bk.reshape(C, wd.rows, nl)
-            syms = []
-            for r in range(wd.rows):
-                s, x, gptr = decode_row(x, gptr, bk[:, r], wd.active_rows[r], stream, tabs)
-                syms.append(s)
-            syms = torch.stack(syms, dim=1).reshape(C, wd.rows * nl)[:, : wd.kw]
+            bk = torch.nn.functional.pad(buckets.to(torch.int32), (0, pad))
+            bk = bk.reshape(C, wd.rows, nl).permute(1, 0, 2).contiguous()  # [rows, C, NL]
+            syms, x, gptr = decode_scan_wave(x, gptr, bk, wd.active_rows, stream, tabs)
+            syms = syms.permute(1, 0, 2).reshape(C, wd.rows * nl)[:, : wd.kw]
             values = (T.unpack_signed(syms) + preds).to(torch.int32)
             return values, x, gptr
 

@@ -11,7 +11,7 @@ stream compaction -> one packed int32 vector (headers + stream) that the
 host unpacks into a container.
 
 Decode (CodecProgram.decode_exec): table regeneration -> per wave: tap
-planes, contexts, the rANS rows -> dequantize + inverse lifting
+planes, contexts, the rANS rows (kernel 3) -> dequantize + inverse lifting
 (kernel B) -> pixel gather and inverse transform.
 
 Everything the JAX program uploads once per shape (geometry gathers,
@@ -443,7 +443,7 @@ class CodecProgram:
     def decode_exec(self, states, stream, wire_bits, offpk, scales, vparams,
                     wparams, qdiv, tid: int = 0, stages=None):
         """Wire fields (device tensors: states [C, NL] int64, stream [W]
-        int64 u16 words zero-padded by >= C*NL, wire_bits / offpk /
+        int32 u16 words zero-padded by >= C*NL, wire_bits / offpk /
         scales int64, vparams / wparams [C, F, 6] f32, qdiv [N] int32) ->
         pixels [C, HW] uint8, inverse channel transform applied."""
         if stages is not None:
@@ -657,7 +657,7 @@ def decode_pipeline_torch(image: CompressedImage, device="cuda", stages=None) ->
 
     pixels = prog.decode_exec(
         put(states[0].astype(np.int64)),
-        put(streams[0].astype(np.int64)),
+        put(streams[0], _I32),
         put(bits[0]),
         put(offpk[0].astype(np.int64)),
         put(scales[0]),

@@ -38,7 +38,15 @@ KERNELS = {
         "frave_tpu_torch/csrc/rans_encode.cu",
         "frave_tpu/ops/rans_jax.py:52",
     ),
+    "decode_scan_wave": (
+        RT.decode_scan_wave,
+        RT.decode_scan_wave_plain,
+        "frave_tpu_torch/csrc/rans_decode.cu",
+        "frave_tpu/ops/pallas_rans.py:328",
+    ),
 }
+# problem kinds of decode_scan_wave (the other kernels have one kind, None)
+DECODE_KINDS = ("valid", "garbage")
 
 
 def _t(a):
@@ -81,9 +89,70 @@ def rans_problem(rng, R: int, C: int, NL: int):
     )
 
 
-def problem(name: str, rng, shape):
+def random_staircases(rng, C: int):
+    """Monotone cdf staircases [C, CA, 1024] int32 with 3-59 coded symbols
+    each, so long runs of equal cdfs (zero-frequency symbols), and scale
+    bits [C, CA] int32 in [8, 14] — no freqs table."""
+    bits = rng.integers(8, 15, size=(C, CONTEXT_AMOUNT)).astype(np.int32)
+    cdfs = np.zeros((C, CONTEXT_AMOUNT, ALPHABET_SIZE), np.int32)
+    for c in range(C):
+        for b in range(CONTEXT_AMOUNT):
+            tot = 1 << int(bits[c, b])
+            on = np.sort(rng.choice(ALPHABET_SIZE, size=int(rng.integers(3, 60)), replace=False))
+            w = rng.random(on.size)
+            f = np.floor(w / w.sum() * tot).astype(np.int64)
+            f[0] += tot - f.sum()
+            freqs = np.zeros(ALPHABET_SIZE, np.int64)
+            freqs[on] = f
+            cdfs[c, b] = np.concatenate([[0], np.cumsum(freqs)[:-1]])
+    return cdfs, bits
+
+
+def garbage_wave(rng, R: int, C: int, NL: int):
+    """Numpy inputs of a wave that is not valid rANS, as
+    tests/test_pallas_rans.py draws them: states in [2^16, 2^32), random
+    buckets, 80% active lanes, random u16 stream words (zero-padded by
+    C*NL), random staircases. Returns (x0 [C, NL] int64, buckets
+    [R, C, NL] int32, active [R, NL] bool, stream [W] int32, cdfs, bits)."""
+    cdfs, bits = random_staircases(rng, C)
+    x0 = rng.integers(1 << 16, 1 << 32, size=(C, NL), dtype=np.int64)
+    buckets = rng.integers(0, CONTEXT_AMOUNT, size=(R, C, NL)).astype(np.int32)
+    active = rng.random((R, NL)) < 0.8
+    words = rng.integers(0, 1 << 16, size=R * C * NL)
+    stream = np.concatenate([words, np.zeros(C * NL, np.int64)]).astype(np.int32)
+    return x0, buckets, active, stream, cdfs, bits
+
+
+def decode_problem(rng, R: int, C: int, NL: int, kind: str):
+    """decode_scan_wave's operands (x0, gptr0, buckets, active, stream,
+    tabs) on the CPU. "valid": a rans_problem grid encoded by the plain
+    encode_scan and compacted, so the wave decodes back to its symbols and
+    to states 2^16; "garbage": garbage_wave."""
+    i32 = torch.int32
+    if kind == "garbage":
+        x0, bkt, act, stream, cdfs, bits = (_t(a) for a in garbage_wave(rng, R, C, NL))
+    elif kind == "valid":
+        sym, bkt, valid, freqs, cdfs, bits = rans_problem(rng, R, C, NL)
+        x0, words, flags = RT.encode_scan_plain(sym, bkt, valid, freqs, cdfs, bits)
+        kc = R * C * NL
+        packed, total = RT.stream_compact_grid(words, flags, kc)
+        stream = torch.zeros(int(total) + C * NL, dtype=i32)
+        stream[: int(total)] = packed[: int(total)].to(i32) & 0xFFFF
+        act = valid[:, 0].to(torch.bool)  # lane activity is channel-independent
+    else:
+        raise ValueError(f"unknown decode problem kind {kind!r}")
+    gptr0 = torch.zeros((), dtype=torch.int64)
+    return x0, gptr0, bkt, act, stream, RT.decode_tables(cdfs, bits)
+
+
+def problem(name: str, rng, shape, kind=None):
     """(positional args, extra args) for kernel `name` at `shape`:
-    lifting (rows, mask_rows), encode_scan (R, C, NL)."""
+    lifting (rows, mask_rows), encode_scan and decode_scan_wave
+    (R, C, NL); `kind` picks decode_scan_wave's problem (DECODE_KINDS)."""
+    if name == "decode_scan_wave":
+        return decode_problem(rng, *shape, kind), ()
+    if kind is not None:
+        raise ValueError(f"{name} has no problem kinds")
     if name == "forward_lift_quantize":
         leaves, lm, _, qdiv = lifting_problem(rng, *shape)
         return (leaves, lm, qdiv), (9,)
@@ -94,6 +163,12 @@ def problem(name: str, rng, shape):
     if name == "encode_scan":
         return rans_problem(rng, *shape), ()
     raise KeyError(name)
+
+
+def _to(a, device):
+    if isinstance(a, dict):
+        return {k: v.to(device) for k, v in a.items()}
+    return a.to(device)
 
 
 def _max_abs_err(a, b) -> int:
@@ -122,17 +197,18 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def check(name: str, shape, device, seed: int = 0, timed: bool = False) -> dict:
+def check(name: str, shape, device, seed: int = 0, timed: bool = False,
+          kind=None) -> dict:
     """Kernel `name` vs its plain version on the same `device` tensors at
-    `shape`. Returns {"name", "shape", "max_abs_err", "ms", "plain_ms"}
-    (times None unless timed)."""
+    `shape` (problem `kind`, see problem()). Returns {"name", "shape",
+    "kind", "max_abs_err", "ms", "plain_ms"} (times None unless timed)."""
     wrapper, plain, _, _ = KERNELS[name]
-    args, extra = problem(name, np.random.default_rng(seed), shape)
-    args = tuple(a.to(device) for a in args)
+    args, extra = problem(name, np.random.default_rng(seed), shape, kind)
+    args = tuple(_to(a, device) for a in args)
     got = wrapper(*args, *extra)
     ref = plain(*args, *extra)
-    out = {"name": name, "shape": list(shape), "max_abs_err": _max_abs_err(got, ref),
-           "ms": None, "plain_ms": None}
+    out = {"name": name, "shape": list(shape), "kind": kind,
+           "max_abs_err": _max_abs_err(got, ref), "ms": None, "plain_ms": None}
     if timed:
         out["ms"] = median_ms(lambda: wrapper(*args, *extra))
         out["plain_ms"] = median_ms(lambda: plain(*args, *extra))

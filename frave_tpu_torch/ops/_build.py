@@ -37,11 +37,14 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry point -> argument types (all return int: cudaGetLastError())
+# C entry point -> argument types (all return int: a cudaError_t, the
+# launches cudaGetLastError())
 _SIGNATURES = {
     "frave_fwd_lift_quant": [_P, _P, _I, _P, _P, _I, _I, _P],
     "frave_inv_lift": [_P, _P, _P, _I, _P, _P, _I, _I, _P],
     "frave_rans_encode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "frave_rans_decode_wave": [_P] * 11 + [_I] * 5 + [_P],
+    "frave_rans_decode_states_fit": [_I, _I, _I, ctypes.POINTER(_I)],
 }
 
 _lock = threading.Lock()

@@ -13,14 +13,20 @@ and masked back to 32 bits where a wrap could occur.
     [R, C, NL] order, so compaction is an exclusive prefix sum over the
     emit flags plus one scatter.
   * pack_u16_pairs — the u16 stream as u32 words (bitcast of pairs).
-  * decode_tables / decode_row — the row step of the decoder: a
-    per-(channel, context) slot -> symbol table of 2^14 entries resolves
-    the symbol ("last symbol whose cdf <= slot": zero-frequency symbols
-    own no slot), and renorm words are handed out in channel-major,
-    lane-minor rank order from the global stream.
+  * decode_scan_wave — every decode row of one grid wave: kernel 3
+    (csrc/rans_decode.cu frave_rans_decode_wave) on the card, the plain
+    loop of decode_row on the CPU. decode_tables builds the kernel's
+    tables from the cdf staircases and scale bits alone; the plain loop
+    derives from them, once per wave, a per-(channel, context) slot ->
+    symbol table of 2^14 entries that resolves the symbol ("last symbol
+    whose cdf <= slot": zero-frequency symbols own no slot), and hands out
+    renorm words in channel-major, lane-minor rank order from the global
+    stream.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -148,50 +154,141 @@ def pack_u16_pairs(stream: torch.Tensor) -> torch.Tensor:
     return stream.contiguous().view(torch.int32)
 
 
-def decode_tables(freqs: torch.Tensor, cdfs: torch.Tensor, scale_bits: torch.Tensor):
-    """Regenerated tables [C, CA, 1024] / [C, CA] -> the decode row's
-    lookup tables: slot -> symbol [C, CA, 2^14] int64 (the last symbol
-    whose cdf <= slot; slots >= 2^bits are never read), and freqs, cdfs,
-    bits as int64."""
-    C, ca, _ = cdfs.shape
-    cd = cdfs.to(torch.int64).contiguous()
+def decode_tables(cdfs: torch.Tensor, scale_bits: torch.Tensor):
+    """Cdf staircases [C, CA, 1024] and scale bits [C, CA] (nothing else,
+    as pallas_rans.prepare_scan_tables) -> the decode tables "cdf"
+    [C, CA, 1024] int32 and "bits" [C, CA] int32, clamped to the coder's
+    range (bits <= 14, cdf <= 2^14) so that both versions read the same
+    values."""
+    bits = scale_bits.to(torch.int64).clamp(0, MAX_FREQ_BITS_CAP)
+    cd = cdfs.to(torch.int64).clamp(0, 1 << MAX_FREQ_BITS_CAP)
+    return {"cdf": cd.to(torch.int32).contiguous(), "bits": bits.to(torch.int32).contiguous()}
+
+
+def _row_tables(tabs):
+    """The plain row's lookup tables from decode_tables': "slot_sym"
+    [C, CA, 2^14] int64, slot -> the last symbol whose cdf <= slot (0
+    where none is), and "cdf_ext" [C, CA, 1025] int64, the staircase with
+    2^bits appended, so that cdf_ext[sym + 1] bounds sym's run."""
+    cd = tabs["cdf"].to(torch.int64)
+    bits = tabs["bits"].to(torch.int64)
+    C, ca, _ = cd.shape
     slots = torch.arange(1 << MAX_FREQ_BITS_CAP, device=cd.device, dtype=torch.int64)
     slot_sym = (
-        torch.searchsorted(cd, slots.expand(C, ca, -1).contiguous(), right=True)
-        - 1
+        torch.searchsorted(cd, slots.expand(C, ca, -1).contiguous(), right=True) - 1
     )
     return {
+        "bits": bits,
         "slot_sym": slot_sym.clamp(0, ALPHABET_SIZE - 1),
-        "freqs": freqs.to(torch.int64),
-        "cdfs": cd,
-        "bits": scale_bits.to(torch.int64),
+        "cdf_ext": torch.cat([cd, (1 << bits)[..., None]], dim=-1),
     }
 
 
-def decode_row(x, gptr, buckets, active, stream, tabs):
-    """One rANS decode row for all channels x lanes.
+def decode_row(x, gptr, buckets, active, stream, rtabs):
+    """One rANS decode row for all channels x lanes (decode_scan_wave's
+    semantics, see there).
 
     x [C, NL] int64 lane states; gptr 0-d int64 stream position; buckets
-    [C, NL] int64 context ids (0..CA-1); active [NL] bool; stream [W]
-    int64 u16 words, zero-padded by >= C*NL past its end. Every index is
-    clamped, so a corrupt stream decodes to garbage, never out of bounds.
-    Returns (sym [C, NL] int64, x', gptr')."""
+    [C, NL] context ids (clamped to 0..CA-1); active [NL] bool; stream [W]
+    int32 u16 words; rtabs from _row_tables. Returns (sym [C, NL] int64,
+    x', gptr')."""
+    decode_row.calls += 1
     C, NL = x.shape
-    ca = tabs["bits"].shape[-1]
+    ca = rtabs["bits"].shape[-1]
     chan = torch.arange(C, device=x.device, dtype=torch.int64)[:, None]
-    ctx = chan * ca + buckets
-    bi = tabs["bits"].reshape(-1)[ctx]
-    slot = x & ((1 << bi) - 1)
-    sym = tabs["slot_sym"].reshape(-1)[(ctx << MAX_FREQ_BITS_CAP) + slot]
-    t = ctx * ALPHABET_SIZE + sym
-    fr = tabs["freqs"].reshape(-1)[t]
-    cd = tabs["cdfs"].reshape(-1)[t]
+    ctx = chan * ca + buckets.to(torch.int64).clamp(0, ca - 1)
+    bi = rtabs["bits"].reshape(-1)[ctx]
+    top = 1 << bi
+    slot = x & (top - 1)
+    sym = rtabs["slot_sym"].reshape(-1)[(ctx << MAX_FREQ_BITS_CAP) + slot]
+    t = ctx * (ALPHABET_SIZE + 1) + sym
+    ext = rtabs["cdf_ext"].reshape(-1)
+    cd = ext[t]
+    fr = torch.minimum(ext[t + 1], top) - cd
     x_new = (fr * (x >> bi) + slot - cd) & _U32
     need = active[None, :] & (x_new < RANS_L)
     nf = need.reshape(-1).to(torch.int64)
     pos = torch.cumsum(nf, dim=0) - 1  # channel-major, lane-minor ranks
     idx = torch.clamp(gptr + pos, 0, stream.shape[0] - 1)
-    w = stream[idx].reshape(C, NL)
+    w = stream[idx].to(torch.int64).reshape(C, NL)
     x_new = torch.where(need, ((x_new << WORD_BITS) | w) & _U32, x_new)
     x = torch.where(active[None, :], x_new, x)
     return sym, x, gptr + nf.sum()
+
+
+decode_row.calls = 0
+
+
+def decode_scan_wave_plain(x, gptr, buckets, active, stream, tabs):
+    """decode_scan_wave as a Python loop of decode_row over the rows."""
+    R, C, NL = buckets.shape
+    act = active.to(torch.bool)
+    rtabs = _row_tables(tabs)
+    syms = torch.empty((R, C, NL), dtype=torch.int32, device=x.device)
+    for r in range(R):
+        s, x, gptr = decode_row(x, gptr, buckets[r], act[r], stream, rtabs)
+        syms[r] = s
+    return syms, x, gptr
+
+
+def decode_scan_wave(x, gptr, buckets, active, stream, tabs):
+    """Every rANS decode row of one grid wave (replaces
+    pallas_rans.decode_scan_wave): kernel 3 (csrc/rans_decode.cu
+    frave_rans_decode_wave, one launch for all R rows) on the card, the
+    plain row loop decode_scan_wave_plain on the CPU.
+
+    x [C, NL] int64 lane states (u32 values); gptr 0-d int64 stream
+    position (a device tensor: nothing is read back to the host);
+    buckets [R, C, NL] int32 context ids, row-major in that order (the
+    JAX kernel's layout); active [R, NL] bool or uint8 lane activity
+    (the same for every channel); stream [W] int32 u16 words; tabs from
+    decode_tables. Per row and (channel, lane):
+      slot = x & (2^bits - 1); sym = the last symbol whose cdf <= slot;
+      freq = min(cdf[sym + 1], 2^bits) - cdf[sym] (2^bits past the end);
+      x' = freq * (x >> bits) + slot - cdf[sym]  (mod 2^32);
+    active lanes with x' < 2^16 take one word each, stream[gptr + rank]
+    with the rank channel-major, lane-minor (schedule.build_stream_perm)
+    and the index clamped to [0, W-1]; inactive lanes keep x. Symbols are
+    computed on every lane. Returns (syms [R, C, NL] int32, x', gptr')."""
+    R, C, NL = buckets.shape
+    ca = tabs["bits"].shape[-1]
+    _check_grid("x", x, (C, NL), (torch.int64,))
+    _check_grid("gptr", gptr, (), (torch.int64,))
+    _check_grid("buckets", buckets, (R, C, NL), (torch.int32,))
+    _check_grid("active", active, (R, NL), (torch.bool, torch.uint8))
+    if stream.dim() != 1 or not 1 <= stream.shape[0] < 1 << 31:
+        raise ValueError(f"stream must be 1-D with 1 to 2^31 - 1 words, got {tuple(stream.shape)}")
+    _check_grid("stream", stream, tuple(stream.shape), (torch.int32,))
+    _check_grid("cdf", tabs["cdf"], (C, ca, ALPHABET_SIZE), (torch.int32,))
+    _check_grid("bits", tabs["bits"], (C, ca), (torch.int32,))
+    dev = x.device
+    if dev.type == "cpu":
+        return decode_scan_wave_plain(x, gptr, buckets, active, stream, tabs)
+    if dev.type != "cuda":
+        raise RuntimeError(f"no kernel for device {dev}")
+    ops = (gptr, buckets, active, stream, tabs["cdf"], tabs["bits"])
+    if any(t.device != dev for t in ops):
+        raise ValueError(f"all operands must lie on {dev}")
+    lib = _build.load_library()
+    act = active.view(torch.uint8) if active.dtype == torch.bool else active
+    syms = torch.empty((R, C, NL), dtype=torch.int32, device=dev)
+    x_out = torch.empty_like(x)
+    g_out = torch.empty_like(gptr)
+    fits = ctypes.c_int(0)
+    code = lib.frave_rans_decode_states_fit(C, NL, ca, ctypes.byref(fits))
+    _build.check(code, "frave_rans_decode_states_fit")
+    # the kernel's state buffer, where the states do not fit shared memory
+    work = None if fits.value else torch.empty(C * NL, dtype=torch.int32, device=dev)
+    code = lib.frave_rans_decode_wave(
+        x.data_ptr(), gptr.data_ptr(), buckets.data_ptr(), act.data_ptr(),
+        stream.data_ptr(), tabs["cdf"].data_ptr(), tabs["bits"].data_ptr(),
+        syms.data_ptr(), x_out.data_ptr(), g_out.data_ptr(),
+        None if work is None else work.data_ptr(),
+        R, C, NL, ca, stream.shape[0], _build.current_stream(dev),
+    )
+    _build.check(code, "frave_rans_decode_wave")
+    decode_scan_wave.launches += 1
+    return syms, x_out, g_out
+
+
+decode_scan_wave.launches = 0

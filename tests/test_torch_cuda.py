@@ -14,6 +14,10 @@ SHAPES = {
     "forward_lift_quantize": [(7, 7), (160, 160), (2532, 844)],
     "dequantize_inverse_lift": [(7, 7), (160, 160), (2532, 844)],
     "encode_scan": [(5, 1, 32), (133, 1, 512), (200, 3, 2048)],
+    # R x C x NL up to 2048x2048 RGB's 16,384 lanes and the pinned 32,768;
+    # C * NL = 609 leaves every row but the first unaligned for 16-byte loads
+    "decode_scan_wave": [(7, 1, 32), (40, 1, 512), (60, 3, 2048), (30, 3, 16384),
+                         (4, 3, 32768), (9, 3, 203)],
 }
 
 
@@ -22,6 +26,8 @@ SHAPES = {
 def test_cuda_kernel_matches_plain(name):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    kinds = kernel_check.DECODE_KINDS if name == "decode_scan_wave" else (None,)
     for shape in SHAPES[name]:
-        res = kernel_check.check(name, shape, torch.device("cuda"))
-        assert res["max_abs_err"] == 0, res
+        for kind in kinds:
+            res = kernel_check.check(name, shape, torch.device("cuda"), kind=kind)
+            assert res["max_abs_err"] == 0, res

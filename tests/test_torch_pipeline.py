@@ -17,6 +17,7 @@ their program caches cleared around each case.
     frave_tpu's on the port.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -173,25 +174,77 @@ def check_slice(env, h, w, c, genc, seed):
     assert blob_tp == blob_jp
 
 
-def test_lossy_preset_matches_frave_tpu(env):
-    """A lossy preset (per-layer quantization, the clamped RGB transform):
-    pinned containers byte-equal, and both decoders give the same pixels."""
+PRESET_CASES = (
+    [(64, 64, 1, q, "auto") for q in ("LOSSLESS", "HIGH", "MEDIUM", "LOW")]
+    + [(96, 80, 3, q, "auto") for q in ("LOSSLESS", "HIGH", "MEDIUM", "LOW")]
+    + [(96, 80, 3, "LOSSLESS", t) for t in ("none", "subtract-green", "ycocg")]
+    + [(96, 80, 3, "HIGH", t) for t in ("none", "subtract-green")]  # clamped
+)
+
+
+def _pinned_opts(img, quality, **kw):
+    """EncoderOptions pinned to frave_tpu's jax fit for `img` at `quality`,
+    at the shape's default lane count (pinned lanes skip the rate-adaptive
+    re-encode, so every preset of a shape shares one program)."""
+    from frave_tpu.fractal.schedule import default_num_lanes, get_schedule
+
+    meta = img.metadata
+    C = meta.num_channels
+    nl = default_num_lanes(get_schedule(meta.height, meta.width, mode="grid").num_symbols)
+    ci_j = PJ.encode_pipeline_jax(img, EncoderOptions(quality=quality, num_lanes=nl, **kw))
+    return EncoderOptions(
+        quality=quality, num_lanes=nl,
+        value_prediction_params=np.stack(
+            [ci_j.channel_data[i].value_prediction_parameters for i in range(C)]
+        ),
+        width_prediction_params=np.stack(
+            [ci_j.channel_data[i].width_prediction_parameters for i in range(C)]
+        ),
+        **kw,
+    )
+
+
+@pytest.mark.parametrize("h,w,c,quality,ctf", PRESET_CASES)
+def test_lossy_preset_matches_frave_tpu(h, w, c, quality, ctf):
+    """Every preset at gray and RGB, and each explicit RGB transform (the
+    lossy ones clamped): pinned containers byte-equal to frave_tpu's, and
+    the port decodes them to frave_tpu's jax pixels — the input only where
+    the preset is lossless. The program caches are kept across cases: the
+    preset and transform are run-time inputs of one program per shape."""
     from frave_tpu import EncoderQuality
 
-    px = _natural(64, 64, 3, 21)
+    q = EncoderQuality[quality]
+    px = _natural(h, w, c, 21)
     img = RasterImage.from_array(px)
-    ci_j = PJ.encode_pipeline_jax(img, EncoderOptions(quality=EncoderQuality.HIGH))
-    vp = np.stack([ci_j.channel_data[i].value_prediction_parameters for i in range(3)])
-    wp = np.stack([ci_j.channel_data[i].width_prediction_parameters for i in range(3)])
-    opts = EncoderOptions(
-        quality=EncoderQuality.HIGH, num_lanes=ci_j.num_lanes,
-        value_prediction_params=vp, width_prediction_params=wp,
-    )
-    blob_t = serialize(PT.encode_pipeline_torch(img, opts, "cpu"))
+    opts = _pinned_opts(img, q, color_transform=ctf)
+    ci_t = PT.encode_pipeline_torch(img, opts, "cpu")
+    if c == 3:
+        assert ci_t.transform == choose_transform(px, ctf, quality == "LOSSLESS")
+    blob_t = serialize(ci_t)
     assert blob_t == serialize(PJ.encode_pipeline_jax(img, opts))
     ref = frave_tpu.decode(blob_t, backend="jax").data
-    assert not np.array_equal(ref, px)  # lossy
+    assert np.array_equal(ref, px) == (quality == "LOSSLESS")
     np.testing.assert_array_equal(frave_tpu_torch.decode(blob_t, device="cpu").data, ref)
+
+
+@pytest.mark.parametrize("c,quality", [(3, "LOSSLESS"), (3, "LOW"), (1, "LOSSLESS")])
+def test_trial_transform_matches_frave_tpu(c, quality):
+    """color_transform="trial": with pinned parameters the port's encoder
+    keeps the same container as frave_tpu's FRIEncoder (the smallest of
+    the candidate transforms); a gray image has no transform to try and
+    encodes as with any other policy."""
+    from frave_tpu import EncoderQuality
+    from frave_tpu.codec.encoder import FRIEncoder
+
+    px = _natural(96, 80, c, 22)
+    img = RasterImage.from_array(px)
+    opts = _pinned_opts(img, EncoderQuality[quality])
+    opts = dataclasses.replace(opts, color_transform="trial", backend="jax")
+    blob_t = frave_tpu_torch.encode(img, opts, device="cpu")
+    assert blob_t == FRIEncoder(opts).encode(img)
+    if c == 1:
+        auto = dataclasses.replace(opts, color_transform="auto")
+        assert blob_t == frave_tpu_torch.encode(img, auto, device="cpu")
 
 
 def test_flat_content_reencodes_at_rate_adaptive_lanes(env):

@@ -1,14 +1,18 @@
 """frave_tpu_torch rANS against frave_tpu's: the reverse encode scan,
 grid stream compaction and the u32 pair pack bit for bit against
-rans_jax, and the port's decode rows recovering what it encoded."""
+rans_jax; the whole-wave decode bit for bit against rans_jax's
+compare-free row chain on garbage waves, and recovering what the port
+encoded on a valid one."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
+from frave_tpu.entropy.tables import CONTEXT_AMOUNT
 from frave_tpu.ops import rans_jax as RJ
-from frave_tpu_torch.kernel_check import rans_problem
+from frave_tpu_torch.kernel_check import decode_problem, garbage_wave, rans_problem
 from frave_tpu_torch.ops import rans_torch as RT
 
 
@@ -57,21 +61,55 @@ def test_stream_compact_and_pair_pack_match_jax():
 
 
 def test_decode_rows_recover_symbols_and_initial_states():
-    rng = np.random.default_rng(2)
+    """A valid wave (encode_scan, then stream_compact_grid) decodes in one
+    decode_scan_wave call back to the encoded symbols on every valid slot,
+    to the encoder's initial states 2^16, and to the end of the stream."""
     R, C, NL = 12, 3, 64
-    sym, bkt, valid, freqs, cdfs, bits = random_grids(rng, R, C, NL)
-    states, w, f = RT.encode_scan(sym, bkt, valid, freqs, cdfs, bits)
-    kc = R * C * NL
-    stream, total = RT.stream_compact_grid(w, f, kc)
-    W = int(total)
-    padded = torch.zeros(W + C * NL, dtype=torch.int64)
-    padded[:W] = stream[:W].to(torch.int64) & 0xFFFF
-    tabs = RT.decode_tables(freqs, cdfs, bits)
-    x, gptr = states.clone(), torch.zeros((), dtype=torch.int64)
-    active = valid[:, 0].to(torch.bool)  # lane activity is channel-independent
-    for r in range(R):
-        s, x, gptr = RT.decode_row(x, gptr, bkt[r].to(torch.int64), active[r], padded, tabs)
-        v = active[r][None].expand(C, NL)
-        assert torch.equal(s[v], sym[r].to(torch.int64)[v])
-    assert int(gptr) == W
+    sym, bkt, valid, _, _, _ = random_grids(np.random.default_rng(2), R, C, NL)
+    x0, gptr0, bkt_d, active, stream, tabs = decode_problem(
+        np.random.default_rng(2), R, C, NL, "valid"
+    )
+    assert torch.equal(bkt_d, bkt)
+    syms, x, gptr = RT.decode_scan_wave(x0, gptr0, bkt_d, active, stream, tabs)
+    v = valid.to(torch.bool)
+    assert torch.equal(syms[v], sym[v])
+    assert int(gptr) == stream.shape[0] - C * NL
     assert bool((x == RT.RANS_L).all())
+
+
+def _comparefree_chain(x0, buckets, active, stream, cdfs, bits):
+    """frave_tpu's plain reference for the whole-wave kernel: the row
+    chain of rans_jax.decode_step_comparefree (as tests/test_pallas_rans.py
+    holds pallas_rans.decode_scan_wave to it)."""
+    tabs = RJ.prepare_compare_tables(jnp.asarray(cdfs), jnp.asarray(bits))
+    iota_ca = jnp.arange(CONTEXT_AMOUNT, dtype=jnp.int32)
+    x = jnp.asarray(x0.astype(np.uint32))
+    gptr = jnp.int32(0)
+    s16 = jnp.asarray(stream.astype(np.uint16))
+    step = jax.jit(RJ.decode_step_comparefree)
+    syms = []
+    for r in range(buckets.shape[0]):
+        oh = jnp.asarray(jnp.asarray(buckets[r])[..., None] == iota_ca, dtype=jnp.bfloat16)
+        sym, x, gptr = step(x, gptr, oh, jnp.asarray(active[r]), s16, tabs)
+        syms.append(np.asarray(sym))
+    return np.stack(syms), np.asarray(x), int(gptr)
+
+
+@pytest.mark.parametrize("C,NL,R", [(1, 32, 5), (3, 64, 7), (3, 200, 6)])
+def test_decode_scan_wave_matches_comparefree_chain(C, NL, R):
+    """Seeded garbage waves (random staircases with zero-frequency runs,
+    bits in [8, 14], 80% active lanes; NL = 200 is no multiple of 128):
+    x' and gptr' equal everywhere, the symbols on active lanes (the JAX
+    chain's inactive-lane symbols are its own garbage)."""
+    x0, bkt, act, stream, cdfs, bits = garbage_wave(np.random.default_rng(C * 100 + NL), R, C, NL)
+    ref_syms, ref_x, ref_g = _comparefree_chain(x0, bkt, act, stream, cdfs, bits)
+    syms, x, gptr = RT.decode_scan_wave(
+        torch.from_numpy(x0), torch.zeros((), dtype=torch.int64), torch.from_numpy(bkt),
+        torch.from_numpy(act), torch.from_numpy(stream),
+        RT.decode_tables(torch.from_numpy(cdfs), torch.from_numpy(bits)),
+    )
+    np.testing.assert_array_equal(x.numpy().astype(np.uint32), ref_x)
+    assert int(gptr) == ref_g
+    act3 = np.broadcast_to(act[:, None, :], (R, C, NL))
+    np.testing.assert_array_equal(syms.numpy()[act3], ref_syms[act3])
+    assert 0 < ref_g < R * C * NL  # some lanes renormed, not all
