@@ -6,39 +6,53 @@
 Phases, each reporting on its own lines; any failed check raises and the
 script exits nonzero without printing a result:
 
-  1. build   — compile the CUDA kernels (frave_tpu_torch/csrc) with nvcc;
+  1. build   — compile the CUDA kernels (frave_tpu_torch/csrc, one nvcc
+               per source, all at once) and, beside them, the C++ frif
+               oracle (csrc/frif.cpp + csrc/geometry.cpp, g++) into
+               frave_tpu_torch/_build/, bound with ctypes here;
   2. kernels — each kernel against its plain PyTorch version on the same
                card tensors, bit-equal, at the shapes every image of the
                main path gives it (lifting rows, encode grid, largest
-               decode wave), median time of 20 launches each (CUDA
-               events); decode_scan_wave also on a valid and a garbage
-               wave at the slice's listed shapes, up to 32,768 lanes;
+               decode wave); decode_scan_wave also on valid and garbage
+               waves up to 32,768 lanes, at its launch rule's cluster size
+               and forced to 1, 2, 4, 8 and 16 blocks. Kernel times are
+               device times of back-to-back calls (kernel_check.device_ms),
+               beside the wrapper's and the plain version's CUDA-event
+               medians per call; the byte bound of each; the empty
+               cross-block exchange loop at 2, 4, 8 and 16 blocks;
   3. main    — the port's public encode -> decode (seeded
                natural-statistics images), three paths (a-c), each with the
                launch counts zeroed just before it and read just after it
                (every kernel launched, decode_scan_wave once per non-empty
                wave, the plain decode row never; every container at the
-               lane count the kernels phase checked):
-               a. 256x256 gray and 768x512 RGB, lossless: containers
-                  cross-decoded with frave_tpu's numpy backend both ways, a
-                  numpy re-encode with the port's parameters pinned compared
-                  byte for byte, the golden v9 grid fixtures decoded, 16
-                  byte flips decoded without a crash;
-               b. 512x512 gray at HIGH, MEDIUM and LOW: the same cross-decodes
-                  (pixels equal to the numpy decode of the same container)
-                  and pinned re-encodes;
-               c. 2048x2048 RGB, lossless: the round trip, the numpy backend's
-                  decode of the port's container, the pinned re-encode, the
-                  first-call time and the peak device memory;
-  4. report  — encode/decode ms and MP/s, per-stage ms at every image, peak
-               device memory, the card's name and power limit, then one JSON
-               line of kernels and, last, the result line.
+               lane count the kernels phase checked). Every image is held
+               against the reference by sources that are not the JAX
+               package's Python: the C++ oracle decodes the port's
+               container to the port's pixels, and the port decodes the
+               oracle's own container of the image to the oracle's pixels;
+               where tests/data/torch_port_refs.json has the image, the
+               port's encode with the reference's parameters pinned must
+               match its length and SHA-256 (made by frave_tpu's jax
+               backend, tests/make_torch_refs.py):
+               a. 256x256 gray and 768x512 RGB, lossless, the golden v9
+                  grid fixtures decoded, 16 byte flips decoded without a
+                  crash;
+               b. 512x512 gray at HIGH, MEDIUM and LOW;
+               c. 2048x2048 RGB, lossless (oracle checks only), first-call
+                  time and peak device memory;
+  4. report  — encode/decode ms and MP/s, per-stage ms at every image, kernel
+               3's device time per 2048x2048 RGB decode at the launch rule
+               and forced to one block, peak device memory, the card's name
+               and power limit, then one JSON line of kernels and, last,
+               the result line.
 
-Needs CUDA (exits 1 without it) and imports no JAX.
+Needs CUDA (exits 1 without it); imports neither jax nor frave_tpu.
 """
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
 import json
 import os
 import subprocess
@@ -49,42 +63,127 @@ import numpy as np
 import torch
 
 import frave_tpu_torch
-from frave_tpu import EncoderOptions, EncoderQuality, RasterImage
-from frave_tpu.codec.container import SerializeError, deserialize, serialize
-from frave_tpu.codec.pipeline_np import decode_pipeline_np, encode_pipeline_np
-from frave_tpu.entropy.tables import (
+from frave_tpu_torch import EncoderOptions, EncoderQuality, RasterImage, kernel_check
+from frave_tpu_torch.codec import grid_decode as GD
+from frave_tpu_torch.codec import pipeline_torch as PT
+from frave_tpu_torch.codec.channel_transform import choose_transform
+from frave_tpu_torch.codec.container import SerializeError, deserialize
+from frave_tpu_torch.entropy.tables import (
     ENC_FREQ_BITS_CAP,
     MIN_FREQ_BITS,
     _GRID_LOG2,
     _LAPLACE_GRID_ROWS,
 )
-from frave_tpu.fractal.geometry import get_geometry
-from frave_tpu.fractal.schedule import default_num_lanes, get_schedule, grid_row_lane
-from frave_tpu_torch import kernel_check
-from frave_tpu_torch.codec import pipeline_torch as PT
+from frave_tpu_torch.fractal.geometry import get_geometry
+from frave_tpu_torch.fractal.schedule import default_num_lanes, get_schedule, grid_row_lane
 from frave_tpu_torch.ops import _build
 from frave_tpu_torch.ops import rans_torch as RT
+from frave_tpu_torch.testing import REF_IMAGES, natural_image
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+REFS = os.path.join(HERE, "tests", "data", "torch_port_refs.json")
+ORACLE_SOURCES = ("csrc/frif.cpp", "csrc/geometry.cpp")
+ORACLE_HEADERS = ("csrc/geometry_core.h",)
+ORACLE_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off")
+CLUSTERS = (0,) + kernel_check.CLUSTERS  # 0: the launch rule
+EXCHANGE_ROWS = 266  # rows of one 2048x2048 RGB decode
 
 
-def natural_image(h: int, w: int, c: int, seed: int) -> np.ndarray:
-    """Seeded photo-like content: smooth illumination, edges, a
-    random-walk texture and sensor noise, channels correlated as in RGB
-    photographs."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
-    light = 110 + 60 * np.sin(xx / 97.0 + 0.7) * np.cos(yy / 73.0)
-    edges = 40.0 * ((xx + 0.6 * yy) % 181 < 90) - 25.0 * ((yy - 0.3 * xx) % 127 < 40)
-    texture = np.cumsum(rng.normal(0, 1.2, (h, w)), axis=1)
-    texture -= texture.mean(axis=1, keepdims=True)
-    base = light + edges + texture
-    planes = []
-    for k in range(c):
-        gain = (1.0, 0.92, 0.81)[k]
-        offset = (0.0, 8.0, -12.0)[k]
-        planes.append(gain * base + offset + rng.normal(0, 2.0, (h, w)))
-    return np.clip(np.stack(planes, axis=-1), 0, 255).astype(np.uint8)
+# ---------------------------------------------------------------- oracle
+
+
+def start_oracle_build():
+    """Start g++ on the C++ frif oracle (nothing is written under csrc/).
+    Returns (process or None when already built, library path)."""
+    h = hashlib.sha256(" ".join(ORACLE_FLAGS).encode())
+    for rel in ORACLE_SOURCES + ORACLE_HEADERS:
+        h.update(open(os.path.join(HERE, rel), "rb").read())
+    out = _build.BUILD_DIR / f"libfrif_oracle_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return None, out
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = ["g++", *ORACLE_FLAGS, "-I", os.path.join(HERE, "csrc"),
+           *(os.path.join(HERE, s) for s in ORACLE_SOURCES), "-o", str(out) + ".tmp"]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), out
+
+
+def finish_oracle_build(proc, out):
+    if proc is not None:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed on the frif oracle:\n{err}")
+        os.replace(str(out) + ".tmp", out)
+    return Oracle(out)
+
+
+class Oracle:
+    """ctypes binding of the C++ frif oracle's plain C interface
+    (frif_probe, frif_decode, frif_encode, frif_free)."""
+
+    def __init__(self, path):
+        lib = ctypes.CDLL(str(path))
+        P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.frif_probe.argtypes = [P, I64, ctypes.POINTER(I), ctypes.POINTER(I), ctypes.POINTER(I)]
+        lib.frif_decode.argtypes = [P, I64, P]
+        lib.frif_encode.argtypes = [I, I, I, P, I, I, I, I, ctypes.POINTER(P), ctypes.POINTER(I64)]
+        lib.frif_free.argtypes = [P]
+        for fn in (lib.frif_probe, lib.frif_decode, lib.frif_encode):
+            fn.restype = I
+        lib.frif_free.restype = None
+        self.lib = lib
+
+    def decode(self, blob: bytes) -> np.ndarray:
+        buf = np.frombuffer(blob, dtype=np.uint8)
+        h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        rc = self.lib.frif_probe(buf.ctypes.data, len(blob), ctypes.byref(h),
+                                 ctypes.byref(w), ctypes.byref(c))
+        if rc != 0:
+            raise AssertionError(f"oracle frif_probe failed (rc={rc})")
+        out = np.empty((h.value, w.value, c.value), dtype=np.uint8)
+        rc = self.lib.frif_decode(buf.ctypes.data, len(blob), out.ctypes.data)
+        if rc != 0:
+            raise AssertionError(f"oracle frif_decode failed (rc={rc})")
+        return out
+
+    def encode(self, px: np.ndarray, quality: EncoderQuality, transform: int) -> bytes:
+        arr = np.ascontiguousarray(px, dtype=np.uint8)
+        h, w, c = arr.shape
+        ptr, n = ctypes.c_void_p(), ctypes.c_int64()
+        rc = self.lib.frif_encode(h, w, c, arr.ctypes.data, quality.value, transform, 0, 2,
+                                  ctypes.byref(ptr), ctypes.byref(n))
+        if rc != 0:
+            raise AssertionError(f"oracle frif_encode failed (rc={rc})")
+        try:
+            return ctypes.string_at(ptr.value, n.value)
+        finally:
+            self.lib.frif_free(ptr)
+
+
+def oracle_checks(label, px, blob, port_px, quality, oracle):
+    """The oracle decodes the port's container to the port's pixels (the
+    input where lossless); the port decodes the oracle's own container of
+    the image to the oracle's pixels."""
+    lossless = quality == EncoderQuality.LOSSLESS
+    t = time.perf_counter()
+    if not np.array_equal(oracle.decode(blob), port_px):
+        raise AssertionError(f"{label}: the oracle decodes the port's container differently")
+    if lossless and not np.array_equal(port_px, px):
+        raise AssertionError(f"{label}: lossless round trip does not give the input")
+    if not lossless and np.array_equal(port_px, px):
+        raise AssertionError(f"{label}: a lossy preset decoded to the input")
+    tid = choose_transform(px, "auto", lossless) if px.shape[2] == 3 else 0
+    oblob = oracle.encode(px, quality, tid)
+    ref = oracle.decode(oblob)
+    if not np.array_equal(frave_tpu_torch.decode(oblob, device="cuda").data, ref):
+        raise AssertionError(f"{label}: the port decodes the oracle's container differently")
+    if lossless and not np.array_equal(ref, px):
+        raise AssertionError(f"{label}: the oracle's own lossless container is not lossless")
+    print(f"main {label}: oracle decodes the port's container to the port's pixels, the port "
+          f"the oracle's ({len(oblob)} B, transform {tid}) to the oracle's "
+          f"({time.perf_counter() - t:.3f} s)")
+
+
+# ---------------------------------------------------------------- refs
 
 
 def scale_gains(hist: np.ndarray, idx: int):
@@ -93,7 +192,7 @@ def scale_gains(hist: np.ndarray, idx: int):
     tot = int(hist.sum())
     bits = max(MIN_FREQ_BITS, min(tot.bit_length() - 1, ENC_FREQ_BITS_CAP))
     b = bits - MIN_FREQ_BITS
-    data = (hist > 0)
+    data = hist > 0
     zero = _LAPLACE_GRID_ROWS[idx, b] == 0
     g32 = np.float32(_GRID_LOG2[idx, b] @ hist.astype(np.float32)) - np.float32(16.0) * np.float32(
         zero.astype(np.float32) @ data.astype(np.float32)
@@ -104,66 +203,55 @@ def scale_gains(hist: np.ndarray, idx: int):
     return float(g32), g64
 
 
-def compare_pinned(label, img, blob_port, hist, device, quality=EncoderQuality.LOSSLESS):
-    """Re-encode on frave_tpu's numpy backend at `quality` with the port's
-    parameters and lane count pinned; the containers must be byte-equal, except
-    where the encode-only Laplace scale index legitimately differs:
-      * empty contexts (no symbol coded): the host keeps the bucket's own
-        row, the device twins (jax, the port) row 0 — the stream does not
-        depend on it, so after taking the port's (bits, scale) for those
-        contexts the bytes must match;
-      * near-ties of the scale gains, chosen in f32 by the host and
-        exactly by the port: printed with both gains; both containers
-        must then decode to the numpy decode of the port's container on
-        both sides."""
-    ci_p = deserialize(blob_port)
-    C = img.metadata.num_channels
-    vp = np.stack([ci_p.channel_data[c].value_prediction_parameters for c in range(C)])
-    wp = np.stack([ci_p.channel_data[c].width_prediction_parameters for c in range(C)])
+def compare_ref(entry, px, oracle):
+    """Encode `px` on the card with the reference entry's parameters and
+    lane count pinned; the container's length and SHA-256 must match the
+    jax backend's. The one allowed difference is a scale-gain near-tie,
+    which jax resolves in f32 and the port exactly: each differing context
+    must be one (the port's pick the exact argmax, the two gains within
+    f32 rounding of each other), is printed with both gains, and then the
+    container must decode to the same pixels on the oracle and the port."""
+    label = f"{entry['label']} {entry['quality']}"
+    q = EncoderQuality[entry["quality"]]
     opts = EncoderOptions(
-        backend="numpy", quality=quality, num_lanes=ci_p.num_lanes,
-        value_prediction_params=vp, width_prediction_params=wp,
+        quality=q, num_lanes=entry["num_lanes"],
+        value_prediction_params=np.asarray(entry["value_prediction_params"], np.float32),
+        width_prediction_params=np.asarray(entry["width_prediction_params"], np.float32),
     )
-    blob_np = serialize(encode_pipeline_np(img, opts))
-    if blob_np == blob_port:
-        print(f"main {label}: pinned numpy re-encode byte-equal ({len(blob_np)} B)")
+    blob = frave_tpu_torch.encode(px, opts, device="cuda")
+    digest = hashlib.sha256(blob).hexdigest()
+    if len(blob) == entry["length"] and digest == entry["sha256"]:
+        print(f"main {label}: pinned encode matches the reference hash ({len(blob)} B, "
+              f"sha256 {digest[:16]}...)")
         return
-    ci_n = deserialize(blob_np)
-    empty, ties = 0, []
-    for c in range(C):
-        for k, (tp, tn) in enumerate(
-            zip(ci_p.channel_data[c].ans_contexts, ci_n.channel_data[c].ans_contexts)
-        ):
-            if tp.scale_idx == tn.scale_idx:
+    ci = deserialize(blob)
+    _, (_, hist), _, _ = PT._encode_dispatch(RasterImage.from_array(px), opts, "cuda")
+    hist = hist.cpu().numpy()
+    ties, other = [], []
+    for c, rows in enumerate(entry["contexts"]):
+        for k, (rb, rs) in enumerate(rows):
+            t = ci.channel_data[c].ans_contexts[k]
+            if (t.max_freq_bits, t.scale_idx) == (rb, rs):
                 continue
-            if hist[c, k].sum() == 0:
-                tn.scale_idx, tn.max_freq_bits = tp.scale_idx, tp.max_freq_bits
-                empty += 1
-            else:
-                gp, gn = scale_gains(hist[c, k], tp.scale_idx), scale_gains(hist[c, k], tn.scale_idx)
-                ties.append((c, k, tp.scale_idx, tn.scale_idx, gp, gn))
-    for c, k, sp, sn, gp, gn in ties:
-        print(
-            f"main {label}: scale near-tie ch{c} ctx{k}: port picks {sp} "
-            f"(gain f32 {gp[0]!r}, f64 {gp[1]!r}), numpy picks {sn} "
-            f"(gain f32 {gn[0]!r}, f64 {gn[1]!r})"
-        )
-    if not ties:
-        if serialize(ci_n) != blob_port:
-            raise AssertionError(f"{label}: pinned numpy container differs from the port's")
-        print(
-            f"main {label}: pinned numpy re-encode byte-equal after taking the "
-            f"port's row for {empty} empty context(s) ({len(blob_port)} B)"
-        )
-        return
-    ref = decode_pipeline_np(ci_p).data
-    for name, blob in (("port", blob_port), ("numpy", blob_np)):
-        out_n = decode_pipeline_np(deserialize(blob)).data
-        out_p = frave_tpu_torch.decode(blob, device=device).data
-        if not (np.array_equal(out_n, ref) and np.array_equal(out_p, ref)):
-            raise AssertionError(f"{label}: {name} container does not cross-decode")
-    print(f"main {label}: {len(ties)} scale near-tie(s); both containers cross-decode")
+            gp, gr = scale_gains(hist[c, k], t.scale_idx), scale_gains(hist[c, k], rs)
+            near = gp[1] >= gr[1] and gp[1] - gr[1] <= 1e-5 * max(abs(gp[1]), 1.0)
+            (ties if near and hist[c, k].sum() else other).append((c, k, t.scale_idx, rs, gp, gr))
+    for c, k, sp, sr, gp, gr in ties + other:
+        print(f"main {label}: ch{c} ctx{k}: port picks scale {sp} (gain f32 {gp[0]!r}, "
+              f"f64 {gp[1]!r}), the reference {sr} (gain f32 {gr[0]!r}, f64 {gr[1]!r})")
+    if other or not ties:
+        raise AssertionError(f"{label}: pinned container ({len(blob)} B, {digest}) differs from "
+                             f"the reference ({entry['length']} B, {entry['sha256']})")
+    port_px = frave_tpu_torch.decode(blob, device="cuda").data
+    if not np.array_equal(oracle.decode(blob), port_px):
+        raise AssertionError(f"{label}: near-tie container decodes differently on the oracle")
+    if q == EncoderQuality.LOSSLESS and not np.array_equal(port_px, px):
+        raise AssertionError(f"{label}: near-tie container is not lossless")
+    print(f"main {label}: {len(ties)} scale near-tie(s); the container decodes to the same "
+          "pixels on the oracle and the port")
 
+
+# ---------------------------------------------------------------- counts
 
 WRAPPERS = {n: k[0] for n, k in kernel_check.KERNELS.items()}
 
@@ -194,6 +282,9 @@ def read_counts(label: str, waves: int) -> dict:
     print(f"main {label}: launches {json.dumps(launches)} (decode_scan_wave: one per "
           f"non-empty wave); plain decode rows 0")
     return launches
+
+
+# ---------------------------------------------------------------- main path
 
 
 def first_call(label, px, opts):
@@ -267,16 +358,65 @@ def same_lanes(label: str, shape: dict, *blobs: bytes) -> None:
 
 def run_checks(plan: dict, dev, checks: dict) -> None:
     """Each kernel against its plain version at the shapes of `plan`
-    ({name: [(shape, problem kind, timed)]}); appends to `checks`."""
+    ({name: [(shape, problem kind, timed, cluster sizes)]}); appends to
+    `checks`."""
     for name, cases in plan.items():
-        for sh, pk, timed in cases:
-            r = kernel_check.check(name, sh, dev, seed=7, timed=timed, kind=pk)
-            times = f" kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms" if timed else ""
-            print(f"kernel {name} {tuple(sh)}{' ' + pk if pk else ''}: "
-                  f"max_abs_err {r['max_abs_err']}{times}")
+        for sh, pk, timed, clusters in cases:
+            r = kernel_check.check(name, sh, dev, seed=7, timed=timed, kind=pk, clusters=clusters)
+            desc = f"kernel {name} {tuple(sh)}{' ' + pk if pk else ''}"
+            if name == "decode_scan_wave":
+                desc += f" clusters {list(clusters)} (rule: {r['cluster']})"
+            times = ""
+            if timed:
+                times = (f" kernel {r['ms']:.4f} ms (wrapper {r['wrapper_ms']:.4f}) plain "
+                         f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.5f} ms")
+            print(f"{desc}: max_abs_err {r['max_abs_err']}{times}")
+            if "cluster_ms" in r:
+                print(f"kernel {name} {tuple(sh)} device ms by cluster size (0: the rule): "
+                      + json.dumps({str(k): round(v, 4) for k, v in r["cluster_ms"].items()}))
             if r["max_abs_err"] != 0:
-                raise AssertionError(f"{name} {sh} {pk}: kernel disagrees with its plain version")
+                raise AssertionError(f"{name} {sh} {pk}: kernel disagrees with its plain version "
+                                     f"({r['errs']})")
             checks.setdefault(name, []).append(r)
+
+
+def exchange_floor(dev) -> dict:
+    """Device ms of EXCHANGE_ROWS rows of kernel 3's cross-block exchange
+    alone (frave_exchange_loop) at 2, 4, 8 and 16 blocks."""
+    out = {}
+    for size in kernel_check.CLUSTERS[1:]:
+        ms = kernel_check.device_ms(lambda: RT.exchange_loop(EXCHANGE_ROWS, size, dev))
+        out[size] = ms
+        print(f"kernel exchange floor: {EXCHANGE_ROWS} rows at {size} blocks {ms:.4f} ms "
+              f"({ms / EXCHANGE_ROWS * 1e3:.3f} us a row)")
+    return out
+
+
+def decode_kernel_ms(blob: bytes, dev) -> tuple:
+    """Kernel 3 over one decode of `blob`: every decode_scan_wave call of
+    the decode is recorded, then each is timed alone (kernel_check.device_ms)
+    at the launch rule and forced to one block. Returns (rule ms, one-block
+    ms, byte-bound ms), each summed over the waves."""
+    calls = []
+
+    def record(*args):
+        calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        return RT.decode_scan_wave(*args)
+
+    wave = GD.decode_scan_wave
+    GD.decode_scan_wave = record
+    try:
+        frave_tpu_torch.decode(blob, device="cuda")
+    finally:
+        GD.decode_scan_wave = wave
+    rule, one = (
+        sum(kernel_check.device_ms(lambda: RT.decode_scan_wave(*args, cluster=size))
+            for args in calls)
+        for size in (0, 1)
+    )
+    nbytes = sum(kernel_check.bytes_moved("decode_scan_wave", args, RT.decode_scan_wave(*args))
+                 for args in calls)
+    return rule, one, nbytes / kernel_check.HBM_BYTES_PER_S * 1e3
 
 
 def main() -> int:
@@ -289,13 +429,18 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
     t_start = time.perf_counter()
 
-    # ---- 1. build
+    # ---- 1. build: nvcc per kernel source and g++ on the oracle, together
     t0 = time.perf_counter()
+    oracle_proc, oracle_path = start_oracle_build()
     _build.load_library()
-    print(
-        f"build: {time.perf_counter() - t0:.3f} s "
-        f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})"
-    )
+    oracle = finish_oracle_build(oracle_proc, oracle_path)
+    print(f"build: {time.perf_counter() - t0:.3f} s (nvcc "
+          f"{_build.build_seconds if _build.build_seconds is not None else 'cached'}; "
+          f"oracle {oracle_path.name})")
+    for src, report in _build.ptxas_report.items():
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"build ptxas {src}: {line.strip()}")
 
     # ---- 2. kernels against their plain versions on the card
     images = {
@@ -304,6 +449,10 @@ def main() -> int:
     }
     preset_label, preset_px = "512x512 gray", natural_image(512, 512, 1, seed=3)
     big_label, big_px = "2048x2048 RGB", natural_image(2048, 2048, 3, seed=4)
+    for label, px in {**images, preset_label: preset_px}.items():
+        h, w, c, seed, _ = REF_IMAGES[label]
+        if not np.array_equal(px, natural_image(h, w, c, seed)):
+            raise AssertionError(f"{label}: not the image the reference hashes were made from")
     all_images = {**images, preset_label: preset_px, big_label: big_px}
     shapes = {label: grid_shapes(*px.shape) for label, px in images.items()}
     shapes[preset_label] = grid_shapes(*preset_px.shape)
@@ -311,25 +460,30 @@ def main() -> int:
     shapes[big_label] = grid_shapes(*big_px.shape)
     print(f"host schedule and geometry {big_label}: {time.perf_counter() - t:.3f} s "
           "(cached: the first call below does not rebuild them)")
-    # (shape, problem kind, timed): every kernel at the shapes each image
-    # gives it at the default lane count, timed; the last timed shape of
-    # each kernel (2048x2048 RGB) is the one the kernels line reports
+    # (shape, problem kind, timed, cluster sizes): every kernel at the
+    # shapes each image gives it at the default lane count, timed; the last
+    # timed shape of each kernel (2048x2048 RGB) is the one the kernels line
+    # reports; decode_scan_wave at every cluster size it can run
     plan = {name: [] for name in kernel_check.KERNELS}
     plan["decode_scan_wave"] = [
-        (sh, k, False)
+        (sh, k, False, CLUSTERS)
         for sh in ((138, 1, 512), (60, 3, 2048), (30, 3, 16384), (4, 3, 32768))
         for k in kernel_check.DECODE_KINDS
-    ]
+    ] + [((40, 1, 512), "valid", True, CLUSTERS)]  # a small one-block wave, timed
     for label in all_images:
         sh = shapes[label]
-        plan["forward_lift_quantize"].append((sh["lift"], None, True))
-        plan["dequantize_inverse_lift"].append((sh["lift"], None, True))
-        plan["encode_scan"].append((sh["grid"], None, True))
-        plan["decode_scan_wave"].append((sh["wave"], "valid", True))
+        plan["forward_lift_quantize"].append((sh["lift"], None, True, (0,)))
+        plan["dequantize_inverse_lift"].append((sh["lift"], None, True, (0,)))
+        plan["encode_scan"].append((sh["grid"], None, True, (0,)))
+        plan["decode_scan_wave"].append((sh["wave"], "garbage", False, CLUSTERS))
+        plan["decode_scan_wave"].append((sh["wave"], "valid", True, CLUSTERS))
     checks = {}
     run_checks(plan, dev, checks)
+    floor = exchange_floor(dev)
     torch.cuda.synchronize(dev)
     print(f"phase kernels done at {time.perf_counter() - t_start:.1f} s")
+
+    refs = json.load(open(REFS))["entries"]
 
     # ---- 3a. lossless at 256x256 gray and 768x512 RGB
     lossless = EncoderOptions()
@@ -341,26 +495,22 @@ def main() -> int:
     reps = 3
     runs = {}
     for label, px in images.items():
-        blob, _, te, td = timed_round_trips(label, px, lossless, reps, dev)
-        runs[label] = (blob, te, td)
+        blob, out, te, td = timed_round_trips(label, px, lossless, reps, dev)
+        runs[label] = (blob, te, td, out)
     waves = reps * sum(shapes[label]["waves"] for label in images)
     for n, k in read_counts("lossless 256x256 gray + 768x512 RGB", waves).items():
         totals[n] += k
     peak = torch.cuda.max_memory_allocated(dev)
 
     for label, px in images.items():
-        blob = runs[label][0]
-        img = RasterImage.from_array(px)
-        if not np.array_equal(decode_pipeline_np(deserialize(blob)).data, img.data):
-            raise AssertionError(f"{label}: numpy backend does not decode the port's container")
-        nblob = serialize(encode_pipeline_np(img, EncoderOptions(backend="numpy")))
-        same_lanes(label, shapes[label], blob, nblob)
-        if not np.array_equal(frave_tpu_torch.decode(nblob, device="cuda").data, img.data):
-            raise AssertionError(f"{label}: the port does not decode a numpy container")
-        print(f"main {label}: lossless; cross-decodes with the numpy backend both ways "
-              f"({len(blob)} B, {8.0 * len(blob) / (px.shape[0] * px.shape[1]):.4f} bpp)")
-        _, (_, hist), _, _ = PT._encode_dispatch(img, lossless, "cuda")
-        compare_pinned(label, img, blob, hist.cpu().numpy(), "cuda")
+        blob, _, _, out = runs[label]
+        same_lanes(label, shapes[label], blob)
+        oracle_checks(label, px, blob, out, EncoderQuality.LOSSLESS, oracle)
+        print(f"main {label}: lossless ({len(blob)} B, "
+              f"{8.0 * len(blob) / (px.shape[0] * px.shape[1]):.4f} bpp)")
+        for entry in refs:
+            if entry["label"] == label:
+                compare_ref(entry, px, oracle)
 
     for name in ("v9grid_gray", "v9grid_rgb"):
         blob = open(os.path.join(HERE, "tests", "data", f"{name}.frv"), "rb").read()
@@ -400,52 +550,35 @@ def main() -> int:
     waves = reps * len(presets) * shapes[preset_label]["waves"]
     for n, k in read_counts(f"{preset_label} HIGH/MEDIUM/LOW", waves).items():
         totals[n] += k
-    img = RasterImage.from_array(preset_px)
     for q, opts in presets.items():
         label = f"{preset_label} {q.name}"
         blob, out_port, _, _ = preset_runs[q]
-        out_np = decode_pipeline_np(deserialize(blob)).data
-        if not np.array_equal(out_port, out_np):
-            raise AssertionError(f"{label}: the port's pixels differ from the numpy decode")
-        if np.array_equal(out_np, img.data):
-            raise AssertionError(f"{label}: a lossy preset decoded to the input")
-        nblob = serialize(encode_pipeline_np(img, EncoderOptions(backend="numpy", quality=q)))
-        same_lanes(label, shapes[preset_label], blob, nblob)
-        if not np.array_equal(frave_tpu_torch.decode(nblob, device="cuda").data,
-                              decode_pipeline_np(deserialize(nblob)).data):
-            raise AssertionError(f"{label}: the port decodes a numpy container differently")
-        psnr = 10 * np.log10(255.0**2 / np.mean((out_np.astype(np.float64) - img.data) ** 2))
-        print(f"main {label}: port pixels equal the numpy decode both ways "
-              f"({len(blob)} B, {8.0 * len(blob) / img.data[..., 0].size:.4f} bpp, "
-              f"PSNR {psnr:.3f} dB)")
-        _, (_, hist), _, _ = PT._encode_dispatch(img, opts, "cuda")
-        compare_pinned(label, img, blob, hist.cpu().numpy(), "cuda", quality=q)
+        same_lanes(label, shapes[preset_label], blob)
+        oracle_checks(label, preset_px, blob, out_port, q, oracle)
+        psnr = 10 * np.log10(255.0**2 / np.mean((out_port.astype(np.float64) - preset_px) ** 2))
+        print(f"main {label}: {len(blob)} B, {8.0 * len(blob) / preset_px[..., 0].size:.4f} bpp, "
+              f"PSNR {psnr:.3f} dB")
+        for entry in refs:
+            if entry["label"] == preset_label and entry["quality"] == q.name:
+                compare_ref(entry, preset_px, oracle)
     print(f"phase main presets done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 3c. 2048x2048 RGB, lossless
     first_call(big_label, big_px, lossless)
     zero_counts()
     torch.cuda.reset_peak_memory_stats(dev)
-    big_blob, _, big_te, big_td = timed_round_trips(big_label, big_px, lossless, reps, dev)
+    big_blob, big_out, big_te, big_td = timed_round_trips(big_label, big_px, lossless, reps, dev)
     big_peak = torch.cuda.max_memory_allocated(dev)
     for n, k in read_counts(big_label, reps * shapes[big_label]["waves"]).items():
         totals[n] += k
     print(f"main {big_label}: lossless; {shapes[big_label]['waves']} decode_scan_wave "
-          "launches per decode")
-    same_lanes(big_label, shapes[big_label], big_blob)
-    img = RasterImage.from_array(big_px)
-    t = time.perf_counter()
-    if not np.array_equal(decode_pipeline_np(deserialize(big_blob)).data, img.data):
-        raise AssertionError(f"{big_label}: numpy backend does not decode the port's container")
-    print(f"main {big_label}: the numpy backend decodes the port's container to the input "
-          f"({time.perf_counter() - t:.3f} s; {len(big_blob)} B, "
+          f"launches per decode ({len(big_blob)} B, "
           f"{8.0 * len(big_blob) / (2048 * 2048):.4f} bpp)")
-    t = time.perf_counter()
-    _, (_, hist), _, _ = PT._encode_dispatch(img, lossless, "cuda")
-    compare_pinned(big_label, img, big_blob, hist.cpu().numpy(), "cuda")
-    print(f"main {big_label}: pinned compare took {time.perf_counter() - t:.3f} s")
+    same_lanes(big_label, shapes[big_label], big_blob)
+    oracle_checks(big_label, big_px, big_blob, big_out, EncoderQuality.LOSSLESS, oracle)
+    print(f"main {big_label}: no reference hash (no full-size jax encode on a CPU host); "
+          "the oracle checks stand alone")
     print(f"phase main 2048x2048 done at {time.perf_counter() - t_start:.1f} s")
-
 
     # ---- 4. report
     rows = [(label, px, runs[label][1], runs[label][2], lossless) for label, px in images.items()]
@@ -457,27 +590,39 @@ def main() -> int:
         print(f"report {label}: encode {te * 1e3:.3f} ms ({mp / te:.3f} MP/s) "
               f"decode {td * 1e3:.3f} ms ({mp / td:.3f} MP/s), median of {reps}")
         print(f"report {label} stages ms: {json.dumps(stage_ms(px, opts, dev))}")
+    for label, blob in [(label, runs[label][0]) for label in images] + [(big_label, big_blob)]:
+        rule_ms, one_ms, bound_ms = decode_kernel_ms(blob, dev)
+        print(f"report {label}: decode_scan_wave device ms per decode "
+              f"({shapes[label]['waves']} launches): launch rule {rule_ms:.4f}, one block "
+              f"{one_ms:.4f}, byte bound {bound_ms:.5f}")
+    floor16 = floor[16] * shapes[big_label]["grid"][0] / EXCHANGE_ROWS
+    print(f"report {big_label}: exchange floor of its {shapes[big_label]['grid'][0]} rows at "
+          f"16 blocks {floor16:.4f} ms")
     print(f"report peak device memory: {peak} B at 256x256 gray + 768x512 RGB, "
           f"{big_peak} B at {big_label} (torch.cuda.max_memory_allocated)")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    print(smi)
-    if "jax" in sys.modules:
-        raise AssertionError("the smoke imported jax")
+    foreign = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                     or m == "frave_tpu" or m.startswith("frave_tpu."))
+    if foreign:
+        raise AssertionError(f"the smoke imported {foreign[:5]}")
 
     kernels = []
     for name, (_, _, src, replaces) in kernel_check.KERNELS.items():
         rs = checks[name]
         at = [r for r in rs if r["ms"] is not None][-1]
-        kernels.append(
-            {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-             "launches": totals[name],
-             "max_abs_err": max(r["max_abs_err"] for r in rs),
-             "ms": at["ms"], "plain_ms": at["plain_ms"]}
-        )
+        entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                 "launches": totals[name],
+                 "max_abs_err": max(r["max_abs_err"] for r in rs),
+                 "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+                 "bound_by": "bytes", "library_ms": None, "shape": at["shape"]}
+        if name == "decode_scan_wave":
+            entry["cluster"] = at["cluster"]
+        kernels.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

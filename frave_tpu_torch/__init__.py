@@ -2,31 +2,36 @@
 NVIDIA H100.
 
 A port of the JAX package ``frave_tpu``, which stays beside it as the
-reference. The host-side modules that import no JAX (fractal geometry and
-schedules, host entropy tables, the frif container, options, images) are
-imported from ``frave_tpu``, not copied; everything that ran on the TPU is
-rewritten here on torch tensors, and the TPU's Pallas kernels (the two
-lifting kernels and the whole-wave rANS decode) and the rANS encode loop
-are CUDA C++ kernels under ``csrc/`` (built with nvcc on first use, see
-``ops/_build.py``).
+reference. The port stands alone: it imports nothing of ``frave_tpu``.
+Its host-side numpy modules (fractal geometry, lattice grids and the
+grid schedule, host entropy tables, the frif container, options, images)
+are its own copies of the JAX package's, with the grid-mode parts only;
+everything that ran on the TPU is rewritten here on torch tensors, and
+the TPU's Pallas kernels (the two lifting kernels and the whole-wave rANS
+decode) and the rANS encode loop are CUDA C++ kernels under ``csrc/``
+(built with nvcc on first use, see ``ops/_build.py``).
 
 Public API (grid mode, the default of ``EncoderOptions``)::
 
     blob = frave_tpu_torch.encode(img, opts=None, device="cuda")
     out = frave_tpu_torch.decode(blob, device="cuda")   # a RasterImage
 
+``opts`` is the port's own ``EncoderOptions``, the image a numpy array or
+the port's ``RasterImage``.
+
 ``device="cpu"`` runs every kernel's plain PyTorch version instead (the
 tests use it); ``device="cuda"`` without CUDA raises.
 """
 
-from frave_tpu.codec.options import EncoderOptions, EncoderQuality
-
 from .codec.decoder import FRIDecoder, decode
 from .codec.encoder import FRIEncoder, encode
+from .codec.options import EncoderOptions, EncoderQuality
+from .images import RasterImage
 
 __all__ = [
     "EncoderOptions",
     "EncoderQuality",
+    "RasterImage",
     "FRIEncoder",
     "FRIDecoder",
     "encode",

@@ -1,11 +1,10 @@
 """Decoder driver: the port of frave_tpu/codec/decoder.py (FRIDecoder)
-for the torch backend. Parses through frave_tpu.codec.container."""
+for the torch backend. Parses through codec/container.py."""
 
 from __future__ import annotations
 
-from frave_tpu.codec.container import deserialize
-from frave_tpu.images import RasterImage
-
+from ..images import RasterImage
+from .container import deserialize
 from .pipeline_torch import decode_pipeline_torch
 
 

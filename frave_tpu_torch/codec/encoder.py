@@ -1,5 +1,5 @@
 """Encoder driver: the port of frave_tpu/codec/encoder.py (FRIEncoder)
-for the torch backend. Serializes through frave_tpu.codec.container."""
+for the torch backend. Serializes through codec/container.py."""
 
 from __future__ import annotations
 
@@ -8,10 +8,9 @@ from typing import Optional, Union
 
 import numpy as np
 
-from frave_tpu.codec.container import serialize
-from frave_tpu.codec.options import EncoderOptions
-from frave_tpu.images import ColorSpace, RasterImage
-
+from ..images import ColorSpace, RasterImage
+from .container import serialize
+from .options import EncoderOptions
 from .pipeline_torch import encode_pipeline_torch
 
 
@@ -19,6 +18,10 @@ class FRIEncoder:
     """Encodes images on one torch device (grid mode)."""
 
     def __init__(self, opts: Optional[EncoderOptions] = None, device="cuda"):
+        if opts is not None and not isinstance(opts, EncoderOptions):
+            raise TypeError(
+                f"opts must be frave_tpu_torch.EncoderOptions, got {type(opts).__name__}"
+            )
         self.opts = opts or EncoderOptions()
         self.device = device
 
@@ -65,6 +68,6 @@ def encode(
     **kwargs,
 ) -> bytes:
     """Encode an image ([h, w] / [h, w, c] uint8 array or RasterImage) into
-    a frif container. `opts` is frave_tpu's EncoderOptions (its `backend`
-    field is not read: the port is the backend)."""
+    a frif container with the port's EncoderOptions `opts` (None: the
+    defaults)."""
     return FRIEncoder(opts, device).encode(data, **kwargs)

@@ -2,7 +2,7 @@
 frave_tpu/codec/grid_decode.py.
 
 Coefficients live in dense per-level [A, B] lattice grids
-(frave_tpu/fractal/lattice.py); the 6 context taps of a whole wave are
+(fractal/lattice.py); the 6 context taps of a whole wave are
 unit shifts of the parent value grid after a polyphase parent->child
 broadcast (fractal/gridplan plans, run by gridplan_torch.apply_plan),
 plus a short list of scale-2 fixups. The rANS lanes are packed per wave
@@ -25,11 +25,11 @@ from typing import List
 import numpy as np
 import torch
 
-from frave_tpu.entropy.tables import ALPHABET_SIZE, CONTEXT_AMOUNT
-from frave_tpu.fractal.gridplan import GridPlan
-
+from ..entropy.tables import ALPHABET_SIZE, CONTEXT_AMOUNT
 from ..entropy.tables_torch import finalize_contexts_device
+from ..fractal.gridplan import GridPlan
 from ..fractal.gridplan_torch import apply_plan
+from ..fractal.lattice import build_wave_plans, get_lattice_grids
 from ..ops import torch_ops as T
 from ..ops.lifting import dequantize_inverse_lift
 from ..ops.rans_torch import decode_scan_wave, decode_tables
@@ -103,8 +103,6 @@ def get_wave_devs(geo, sched, nl: int, n_slots: int, device) -> List[WaveDev]:
     """Wave constants for one (shape, nl) on `device`, built from the same
     numpy lattice.build_wave_plans output as the JAX package. Raises
     lattice.DenseGridUnavailable at tiny shapes."""
-    from frave_tpu.fractal.lattice import build_wave_plans, get_lattice_grids
-
     lg = get_lattice_grids(geo.height, geo.width, geo.depth)
     plans = build_wave_plans(geo, lg)
     if len(plans) != sched.max_wave:

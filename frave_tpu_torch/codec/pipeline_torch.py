@@ -16,7 +16,8 @@ planes, contexts, the rANS rows (kernel 3) -> dequantize + inverse lifting
 
 Everything the JAX program uploads once per shape (geometry gathers,
 masks, schedule tensors, Laplace grid, wave plans) is built from the same
-numpy host structures of frave_tpu and kept on the program's device.
+numpy host structures (the port's copies of frave_tpu's host modules)
+and kept on the program's device.
 """
 
 from __future__ import annotations
@@ -30,32 +31,22 @@ from typing import Dict
 import numpy as np
 import torch
 
-from frave_tpu.codec.options import EncoderOptions, quantization_matrix
-from frave_tpu.entropy.tables import (
-    ALPHABET_SIZE,
-    CONTEXT_AMOUNT,
-    _GRID_LOG2,
-    _LAPLACE_GRID_ROWS,
-)
-from frave_tpu.fractal.geometry import BASE_FRAC_DEPTH, get_geometry
-from frave_tpu.fractal.schedule import (
+from ..entropy.tables import ALPHABET_SIZE, CONTEXT_AMOUNT, _GRID_LOG2, _LAPLACE_GRID_ROWS
+from ..entropy.tables_torch import finalize_contexts_device, select_scales_device
+from ..fractal.geometry import BASE_FRAC_DEPTH, get_geometry
+from ..fractal.lattice import DenseGridUnavailable
+from ..fractal.schedule import (
     default_num_lanes,
     get_schedule,
     grid_row_lane,
     rate_adaptive_lanes,
 )
-from frave_tpu.images import (
-    AnsContextTables,
-    ChannelData,
-    ColorSpace,
-    CompressedImage,
-    RasterImage,
-)
-
-from ..entropy.tables_torch import finalize_contexts_device, select_scales_device
+from ..images import AnsContextTables, ChannelData, ColorSpace, CompressedImage, RasterImage
 from ..ops import torch_ops as T
 from ..ops.lifting import forward_lift_quantize
 from ..ops.rans_torch import encode_scan, pack_u16_pairs, stream_compact_grid
+from .channel_transform import choose_transform
+from .options import EncoderOptions, quantization_matrix
 
 _I64 = torch.int64
 _I32 = torch.int32
@@ -234,8 +225,6 @@ class CodecProgram:
         and the wave plans. Shapes with no dense lattice maps (under ~32 px
         a side) raise NotImplementedError: their step-tensor decoder is
         not ported."""
-        from frave_tpu.fractal.lattice import DenseGridUnavailable
-
         from .grid_decode import build_grid_decode, build_grid_encode, get_wave_devs
 
         self = cls()
@@ -524,8 +513,6 @@ def _unpack_channels(head: np.ndarray, prog: CodecProgram):
 def _encode_dispatch(image: RasterImage, opts: EncoderOptions, device, stages=None):
     """Upload + run the fused encode for one image; returns (prog,
     (packed, hist) device tensors, qm, transform id)."""
-    from frave_tpu.codec.channel_transform import choose_transform
-
     if opts.mode != "grid":
         raise NotImplementedError(f"mode={opts.mode!r}: only grid mode is ported")
     meta = image.metadata

@@ -1,5 +1,5 @@
-// Whole-wave interleaved-lane rANS decode for Hopper (sm_90a), plain C
-// interface.
+// Whole-wave interleaved-lane rANS decode for Hopper (sm_90a) over one
+// thread-block cluster, plain C interface.
 //
 // Replaces frave_tpu/ops/pallas_rans.py decode_scan_wave (_decode_kernel):
 // every decode row of one grid wave in one launch. The rows of a wave
@@ -7,42 +7,69 @@
 // position gptr; the buckets of a wave depend only on earlier waves, so
 // nothing crosses the launch but (x, gptr), and both stay on the device.
 //
-// Design: one block of 1024 threads per wave. Each row is walked in tiles
-// of 8192 lanes (flat index i = c * NL + n, the stream's rank order);
-// thread t owns lanes 8t .. 8t + 7 of every tile, in every row, so a lane's
-// state is only ever touched by one thread.
-//   * symbol: the u16 cdf staircases of all (channel, context) pairs sit
-//     in shared memory (32 KB a channel, padded against bank conflicts, see
-//     kWinStride). The symbol s is the last index whose cdf <= slot, found
-//     by a 10-step branch-free upper-bound search, which resolves runs of
-//     equal cdfs (zero-frequency symbols) to the last one and gives 0 where
-//     no entry is <= slot; freq = min(cdf[s + 1], 2^bits) - cdf[s]. All
-//     arithmetic is u32, integer only (the TPU kernel's f32 MXU staircases
-//     are not carried over).
-//   * rank: the words a row takes are contiguous in the stream, in lane
-//     order, so a lane's word is stream[gptr + rank]. Per tile, each
-//     thread counts its renorming lanes, a warp-shuffle + shared-memory
-//     block scan gives each thread its exclusive rank and the tile total,
-//     and gptr advances by the total. Every stream index is clamped to
-//     [0, W - 1], so a corrupt container decodes to garbage, never out of
-//     bounds.
-//   * states: in shared memory beside the tables when they fit (up to
-//     ~33k lanes at C = 3 on an H100's 227 KB); beyond that in the
-//     caller's `xwork` buffer in device memory (frave_rans_decode_states_fit
-//     says which), where each thread reads and writes its own lanes once
-//     per row (192 KB at 2048x2048 RGB, L2-sized). Shared memory is ~8%
-//     faster at C = 3, NL = 2048 and the same at C = 1.
-//     The tables keep shared memory because every lane reads them 12 times
-//     a row at random addresses, its state only twice (the other way round
-//     measured 2.4x slower at 2048x2048 RGB's largest wave).
+// Bound on this card. Bytes: each lane-row reads a 4-byte bucket and
+// writes a 4-byte symbol, each row one activity byte per lane, and the
+// wave reads the words it consumes (13.07 M lane-rows, ~0.035 ms at
+// 3.35 TB/s for a whole 2048x2048 RGB decode). Dependencies: row r + 1
+// needs row r's states and its stream position gptr + (words row r took),
+// an exclusive prefix over all C * NL lanes, so a wave costs at least R
+// cross-SM exchanges one after another, whatever the bandwidth
+// (chip_smoke.py times an empty exchange loop at each cluster size).
 //
-// Bound: one SM does the whole wave, so the shared-memory symbol search
-// (10 dependent loads per lane and row) and the per-tile block scans set
-// the time; the card's other SMs idle. Spreading a row over a cluster or a
-// cooperative grid is the next step, not this kernel's.
+// Design: one cluster of S blocks of 1024 threads (S = 1, 2, 4, 8, 16)
+// per wave, launched with cudaLaunchKernelEx. Block k owns a contiguous
+// range of the flat rank index i = c * NL + n (the stream's rank order),
+// so its renorm words are contiguous in the stream; thread t owns lanes
+// Pt .. Pt + P - 1 of it, P = 1, 2, 4 or 8 the fewest that cover the
+// range with 1024 threads (fewer lanes a thread: shorter dependent search
+// chains per thread, more warps to hide them).
+//   * symbol: every block holds the u16 cdf staircases of all (channel,
+//     context) pairs in its shared memory (32 KB a channel, padded against
+//     bank conflicts, see kWinStride). The symbol s is the last index
+//     whose cdf <= slot, found by a 10-step branch-free upper-bound
+//     search, which resolves runs of equal cdfs (zero-frequency symbols)
+//     to the last one and gives 0 where no entry is <= slot;
+//     freq = min(cdf[s + 1], 2^bits) - cdf[s]. All arithmetic is u32,
+//     integer only.
+//   * rank: per row, each block scans its own renorm counts (warp shuffles,
+//     one __syncthreads, every warp then scans the 32 warp sums itself),
+//     writes its block total into a shared-memory slot chosen by row
+//     parity and arrives at the cluster barrier; after it, lanes 0..S-1 of
+//     every warp read the S block totals through distributed shared memory
+//     (cluster.map_shared_rank) and scan them, which gives the block's base
+//     rank and the row total that advances gptr. The parity slots make one
+//     cluster barrier per row enough: a block can overwrite a slot only
+//     after the next barrier, which every reader of that slot has passed.
+//     Every stream index is clamped to [0, W - 1], so a corrupt container
+//     decodes to garbage, never out of bounds.
+//   * one tile per block (C * NL <= 8192 S, every launch-rule choice up to
+//     131,072 lanes): the thread's P lane states stay in registers for the
+//     whole wave, and the next row's buckets and activity (independent of
+//     the current row) are loaded before the current row's scan and
+//     barrier, so the per-row chain is the search, the scan, the exchange
+//     and the dependent stream load, without a device-memory load of
+//     buckets on it.
+//   * several tiles per block (a cluster size forced below the rule, or
+//     C * NL > 131,072): 8 lanes a thread in tiles of 8192; per row, pass A
+//     decodes every tile, stores the states in the caller's `xwork` buffer
+//     in device memory (C * NL u32; they do not fit beside the tables at
+//     S = 1 and 2048x2048 RGB) and each thread's (block-local rank, renorm
+//     mask) in shared memory; after the exchange pass B takes the words.
+//
+// The launch rule (frave_rans_decode_plan with cluster = 0): the smallest
+// S with at most kBlockLanes = 2048 lanes a block, capped at 16 and
+// lowered while cudaOccupancyMaxActiveClusters says S blocks cannot be
+// resident at once. On an H100 (PERF.md) it gives S = 1 up to 2048 lanes,
+// where a cluster barrier costs more than the search it splits, and 4 at
+// 768x512 RGB (6,144 lanes), 16 at 2048x2048 RGB (49,152).
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
 
 #include <cstdint>
-#include <cuda_runtime.h>
+#include <mutex>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -50,6 +77,10 @@ constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPerThread = 8;
 constexpr int kTile = kThreads * kPerThread;
+constexpr int kMaxCluster = 16;
+// lanes a block aims at under the launch rule (measured on an H100:
+// 2048 lanes a block at 1 or 2 lanes a thread beat larger blocks; PERF.md)
+constexpr int kBlockLanes = 2048;
 constexpr int kAlphabet = 1024;
 // shared-memory layout of a cdf staircase: 32 windows of 32 u16 entries,
 // each window padded to 34 slots and each row to 32 * 34 + 2, so that
@@ -61,227 +92,512 @@ constexpr int kWinStride = kWin + 2;
 constexpr int kRowStride = kAlphabet / kWin * kWinStride + 2;
 constexpr int kMaxBits = 14;
 constexpr uint32_t kRansL = 1u << 16;
-static_assert(kWarps == 32, "the block scan's second level is one warp");
+constexpr unsigned kFull = 0xFFFFFFFFu;
+static_assert(kWarps == 32, "the second scan level is one warp wide");
+static_assert(kMaxCluster <= 32, "the block totals are scanned by one warp");
+
+struct WaveArgs {
+  const int64_t* x_in;
+  const int64_t* gptr_in;
+  const uint32_t* bkt;
+  const uint8_t* active;
+  const int32_t* stream;
+  const int32_t* cdf;
+  const int32_t* bits;
+  uint32_t* syms;
+  int64_t* x_out;
+  int64_t* gptr_out;
+  uint32_t* xwork;  // [C * NL] lane states of several-tile blocks
+  int rows, channels, lanes, contexts, stream_len;
+  int64_t chunk;  // lanes a block owns (a multiple of 8)
+};
 
 __host__ __device__ constexpr size_t align16(size_t n) {
   return (n + 15) & ~static_cast<size_t>(15);
 }
 
+__host__ __device__ constexpr size_t table_bytes(int nctx) {
+  return align16(static_cast<size_t>(nctx) * 4) +
+         align16(static_cast<size_t>(nctx) * kRowStride * 2);
+}
+
+__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
+
 __device__ __forceinline__ int cdf_slot(int e) {
   return (e / kWin) * kWinStride + e % kWin;
 }
 
-// 8 consecutive u32 from p[i0 ..]: two 16-byte loads where the run is
-// whole and aligned, guarded scalar loads (0 past n) otherwise.
-__device__ __forceinline__ void load8(const uint32_t* p, int64_t i0, int64_t n,
-                                      uint32_t (&out)[kPerThread]) {
-  if (i0 + kPerThread <= n && (reinterpret_cast<uintptr_t>(p + i0) & 15) == 0) {
-    const uint4 a = *reinterpret_cast<const uint4*>(p + i0);
-    const uint4 b = *reinterpret_cast<const uint4*>(p + i0 + 4);
-    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-    out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+__device__ __forceinline__ int warp_incl_scan(int v, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, v, d);
+    if (lane >= d) v += y;
+  }
+  return v;
+}
+
+// P consecutive u32 from p[i0 ..]: 16-byte loads where the run is whole
+// and aligned (P >= 4), guarded scalar loads (0 past n) otherwise.
+template <int P>
+__device__ __forceinline__ void loadp(const uint32_t* p, int64_t i0, int64_t n,
+                                      uint32_t (&out)[P]) {
+  if (P >= 4 && i0 + P <= n && (reinterpret_cast<uintptr_t>(p + i0) & 15) == 0) {
+#pragma unroll
+    for (int q = 0; q < P / 4; ++q) {
+      const uint4 a = *reinterpret_cast<const uint4*>(p + i0 + 4 * q);
+      out[4 * q] = a.x; out[4 * q + 1] = a.y; out[4 * q + 2] = a.z; out[4 * q + 3] = a.w;
+    }
   } else {
 #pragma unroll
-    for (int v = 0; v < kPerThread; ++v) out[v] = i0 + v < n ? p[i0 + v] : 0u;
+    for (int v = 0; v < P; ++v) out[v] = i0 + v < n ? p[i0 + v] : 0u;
   }
 }
 
-// Store the lanes of `mask` among 8 consecutive u32 at p[i0 ..]: two
-// 16-byte stores where all 8 are stored and aligned, scalar otherwise.
-__device__ __forceinline__ void store8(uint32_t* p, int64_t i0, uint32_t mask,
-                                       const uint32_t (&in)[kPerThread]) {
-  if (mask == 0xFFu && (reinterpret_cast<uintptr_t>(p + i0) & 15) == 0) {
-    *reinterpret_cast<uint4*>(p + i0) = make_uint4(in[0], in[1], in[2], in[3]);
-    *reinterpret_cast<uint4*>(p + i0 + 4) = make_uint4(in[4], in[5], in[6], in[7]);
+// Store the lanes of `mask` among P consecutive u32 at p[i0 ..]: 16-byte
+// stores where all P are stored and aligned (P >= 4), scalar otherwise.
+template <int P>
+__device__ __forceinline__ void storep(uint32_t* p, int64_t i0, uint32_t mask,
+                                       const uint32_t (&in)[P]) {
+  if (P >= 4 && mask == (1u << P) - 1u && (reinterpret_cast<uintptr_t>(p + i0) & 15) == 0) {
+#pragma unroll
+    for (int q = 0; q < P / 4; ++q)
+      *reinterpret_cast<uint4*>(p + i0 + 4 * q) =
+          make_uint4(in[4 * q], in[4 * q + 1], in[4 * q + 2], in[4 * q + 3]);
   } else {
 #pragma unroll
-    for (int v = 0; v < kPerThread; ++v)
+    for (int v = 0; v < P; ++v)
       if (mask >> v & 1u) p[i0 + v] = in[v];
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-rans_decode_wave_kernel(const int64_t* __restrict__ x_in,
-                        const int64_t* __restrict__ gptr_in,
-                        const uint32_t* __restrict__ bkt,
-                        const uint8_t* __restrict__ active,
-                        const int32_t* __restrict__ stream, int stream_len,
-                        const int32_t* __restrict__ cdf,
-                        const int32_t* __restrict__ bits,
-                        uint32_t* __restrict__ syms,
-                        int64_t* __restrict__ x_out,
-                        int64_t* __restrict__ gptr_out, uint32_t* xwork,
-                        int rows, int channels, int lanes, int contexts,
-                        int states_in_smem) {
+// Bits of the P lanes from flat index i0 (limited to `live`) that the
+// row's activity act_r [NL] marks active.
+template <int P>
+__device__ __forceinline__ uint32_t load_act(const uint8_t* act_r, int64_t i0,
+                                             int lanes, uint32_t live) {
+  if (!live) return 0u;
+  int n = static_cast<int>(i0 % lanes);
+  uint32_t m = 0;
+#pragma unroll
+  for (int v = 0; v < P; ++v) {
+    if ((live >> v & 1u) && act_r[n]) m |= 1u << v;
+    if (++n == lanes) n = 0;
+  }
+  return m;
+}
+
+// One row of the P lanes from flat index i0: symbols into sv, the states
+// of the active lanes advanced; returns the mask of those that renorm.
+template <int P>
+__device__ __forceinline__ uint32_t decodep(const uint32_t* s_bits, const uint16_t* s_cdf,
+                                            const WaveArgs& a, int64_t i0,
+                                            const uint32_t (&bk)[P], uint32_t act_m,
+                                            uint32_t (&xv)[P], uint32_t (&sv)[P]) {
+  int c = static_cast<int>(i0 / a.lanes);
+  int n = static_cast<int>(i0 - static_cast<int64_t>(c) * a.lanes);
+  uint32_t need_m = 0;
+#pragma unroll
+  for (int v = 0; v < P; ++v) {
+    const uint32_t x = xv[v];
+    const int b = min(max(static_cast<int>(bk[v]), 0), a.contexts - 1);
+    const int ctx = min(c, a.channels - 1) * a.contexts + b;
+    const uint32_t bi = s_bits[ctx];
+    const uint32_t top = 1u << bi;
+    const uint32_t slot = x & (top - 1u);
+    const uint16_t* row = s_cdf + ctx * kRowStride;
+    int s = 0;
+#pragma unroll
+    for (int step = kAlphabet / 2; step > 0; step >>= 1)
+      if (row[cdf_slot(s + step)] <= slot) s += step;
+    const uint32_t cd = row[cdf_slot(s)];
+    const uint32_t nx =
+        min(s + 1 < kAlphabet ? static_cast<uint32_t>(row[cdf_slot(s + 1)]) : top, top);
+    const uint32_t x2 = (nx - cd) * (x >> bi) + slot - cd;
+    sv[v] = static_cast<uint32_t>(s);
+    if (act_m >> v & 1u) {
+      xv[v] = x2;
+      if (x2 < kRansL) need_m |= 1u << v;
+    }
+    if (++n == a.lanes) {
+      n = 0;
+      ++c;
+    }
+  }
+  return need_m;
+}
+
+// Load the clamped tables into this block's shared memory.
+__device__ __forceinline__ void load_tables(const WaveArgs& a, uint32_t* s_bits,
+                                            uint16_t* s_cdf) {
+  const int nctx = a.channels * a.contexts;
+  // the clamps repeat decode_tables' (bits <= 14, cdf <= 2^14): no shift
+  // past 31 and no u16 truncation, whatever the caller passes
+  for (int k = threadIdx.x; k < nctx; k += kThreads)
+    s_bits[k] = static_cast<uint32_t>(min(max(a.bits[k], 0), kMaxBits));
+  for (int k = threadIdx.x; k < nctx * kAlphabet; k += kThreads)
+    s_cdf[k / kAlphabet * kRowStride + cdf_slot(k % kAlphabet)] =
+        static_cast<uint16_t>(min(max(a.cdf[k], 0), 1 << kMaxBits));
+}
+
+// The words of the thread's renorming lanes are consecutive from `rank`:
+// the loads go out together, clamped, and shift into the states.
+template <int P>
+__device__ __forceinline__ void take_words(const WaveArgs& a, int64_t rank,
+                                           uint32_t need_m, uint32_t (&xv)[P]) {
+  uint32_t wv[P];
+#pragma unroll
+  for (int v = 0; v < P; ++v) {
+    const int64_t idx = rank < 0 ? 0 : (rank >= a.stream_len ? a.stream_len - 1 : rank);
+    wv[v] = (need_m >> v & 1u) ? static_cast<uint32_t>(a.stream[idx]) : 0u;
+    rank += need_m >> v & 1u;
+  }
+#pragma unroll
+  for (int v = 0; v < P; ++v)
+    if (need_m >> v & 1u) xv[v] = (xv[v] << 16) | wv[v];
+}
+
+// The row's cross-block exchange: every block's total `btot` in, this
+// block's base rank and the row total out (S = 1: 0 and btot).
+__device__ __forceinline__ void exchange(int* s_tot, int par, int btot, int lane,
+                                         int64_t* base, int64_t* rowtot) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  if (S == 1) {
+    *base = 0;
+    *rowtot = btot;
+    return;
+  }
+  if (threadIdx.x == 0) s_tot[par] = btot;
+  cluster.sync();
+  int v = 0;
+  if (lane < S) v = *cluster.map_shared_rank(s_tot + par, lane);
+  const int vincl = warp_incl_scan(v, lane);
+  const int rb = static_cast<int>(cluster.block_rank());
+  const int before = __shfl_sync(kFull, vincl, (rb + 31) & 31);
+  *base = rb ? before : 0;
+  *rowtot = __shfl_sync(kFull, vincl, 31);
+}
+
+// The block's exclusive rank of this thread's count `cnt` (its warp's
+// inclusive scan is `incl`) and the block total, from s_warp[buf].
+__device__ __forceinline__ int block_scan(int (*s_warp)[kWarps], int buf, int cnt,
+                                          int incl, int lane, int warp, int* total) {
+  if (lane == 31) s_warp[buf][warp] = incl;
+  __syncthreads();
+  const int w = warp_incl_scan(s_warp[buf][lane], lane);
+  const int before = __shfl_sync(kFull, w, (warp + 31) & 31);
+  *total = __shfl_sync(kFull, w, 31);
+  return (warp ? before : 0) + incl - cnt;
+}
+
+// P > 0: one tile of kThreads * P lanes a block, P lanes a thread with
+// their states in registers; P == 0: several tiles of kTile lanes.
+template <int P>
+__global__ void __launch_bounds__(kThreads, 1) rans_decode_wave_kernel(const WaveArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_warp[2][kWarps];
-  const int nctx = channels * contexts;
-  const size_t bits_bytes = align16(static_cast<size_t>(nctx) * 4);
-  const size_t tab_bytes = bits_bytes + align16(static_cast<size_t>(nctx) * kRowStride * 2);
+  __shared__ int s_tot[2];
+  const int nctx = a.channels * a.contexts;
+  const size_t tab = table_bytes(nctx);
   uint32_t* s_bits = reinterpret_cast<uint32_t*>(smem);
-  uint16_t* s_cdf = reinterpret_cast<uint16_t*>(smem + bits_bytes);
-  uint32_t* xs = states_in_smem ? reinterpret_cast<uint32_t*>(smem + tab_bytes) : xwork;
+  uint16_t* s_cdf = reinterpret_cast<uint16_t*>(smem + align16(static_cast<size_t>(nctx) * 4));
+  load_tables(a, s_bits, s_cdf);
 
-  const int64_t cnl = static_cast<int64_t>(channels) * lanes;
+  const int64_t cnl = static_cast<int64_t>(a.channels) * a.lanes;
+  const int blk = static_cast<int>(cg::this_cluster().block_rank());
+  const int64_t lo = min64(cnl, blk * a.chunk);
+  const int64_t hi = min64(cnl, lo + a.chunk);
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  // the clamps repeat decode_tables' (bits <= 14, cdf <= 2^14): no shift
-  // past 31 and no u16 truncation, whatever the caller passes
-  for (int k = t; k < nctx; k += kThreads)
-    s_bits[k] = static_cast<uint32_t>(min(max(bits[k], 0), kMaxBits));
-  for (int k = t; k < nctx * kAlphabet; k += kThreads)
-    s_cdf[k / kAlphabet * kRowStride + cdf_slot(k % kAlphabet)] =
-        static_cast<uint16_t>(min(max(cdf[k], 0), 1 << kMaxBits));
-  for (int64_t i = static_cast<int64_t>(t) * kPerThread; i < cnl; i += kTile) {
-    uint32_t x0[kPerThread];
-    uint32_t mask = 0;
+  int64_t g = *a.gptr_in;
+
+  if constexpr (P > 0) {
+    const int64_t i0 = lo + static_cast<int64_t>(t) * P;
+    uint32_t live = 0;
 #pragma unroll
-    for (int v = 0; v < kPerThread; ++v) {
-      x0[v] = i + v < cnl ? static_cast<uint32_t>(x_in[i + v]) : 0u;
-      if (i + v < cnl) mask |= 1u << v;
+    for (int v = 0; v < P; ++v)
+      if (i0 + v < hi) live |= 1u << v;
+    uint32_t xv[P], bk[P] = {};
+#pragma unroll
+    for (int v = 0; v < P; ++v)
+      xv[v] = live >> v & 1u ? static_cast<uint32_t>(a.x_in[i0 + v]) : 0u;
+    uint32_t act_m = 0;
+    if (live && a.rows > 0) {
+      loadp<P>(a.bkt, i0, hi, bk);
+      act_m = load_act<P>(a.active, i0, a.lanes, live);
     }
-    store8(xs, i, mask, x0);
-  }
-  __syncthreads();
-
-  int64_t g = *gptr_in;
-  int buf = 0;
-  for (int r = 0; r < rows; ++r) {
-    const uint32_t* bk_r = bkt + static_cast<int64_t>(r) * cnl;
-    const uint8_t* act_r = active + static_cast<int64_t>(r) * lanes;
-    uint32_t* sym_r = syms + static_cast<int64_t>(r) * cnl;
-    for (int64_t base = 0; base < cnl; base += kTile) {
-      const int64_t i0 = base + static_cast<int64_t>(t) * kPerThread;
-      uint32_t xv[kPerThread] = {}, bk[kPerThread] = {}, sv[kPerThread];
-      uint32_t live = 0, act_m = 0, need_m = 0;
-      // every global load of the tile goes out before any result is
-      // used, so the thread waits for device memory once, not per lane
-      if (i0 < cnl) {
-        load8(xs, i0, cnl, xv);
-        load8(bk_r, i0, cnl, bk);
-      }
-      int c = static_cast<int>(i0 / lanes);
-      int n = static_cast<int>(i0 - static_cast<int64_t>(c) * lanes);
-      int cv[kPerThread];
-#pragma unroll
-      for (int v = 0; v < kPerThread; ++v) {
-        cv[v] = c;
-        if (i0 + v < cnl) {
-          live |= 1u << v;
-          if (act_r[n]) act_m |= 1u << v;
-        }
-        if (++n == lanes) {
-          n = 0;
-          ++c;
+    __syncthreads();  // the tables
+    for (int r = 0; r < a.rows; ++r) {
+      const int par = r & 1;
+      uint32_t need_m = 0;
+      if (live) {
+        uint32_t sv[P];
+        need_m = decodep<P>(s_bits, s_cdf, a, i0, bk, act_m, xv, sv);
+        storep<P>(a.syms + static_cast<int64_t>(r) * cnl, i0, live, sv);
+        // the next row's buckets and activity do not depend on this row:
+        // their loads go out before this row's scan and exchange
+        if (r + 1 < a.rows) {
+          loadp<P>(a.bkt + static_cast<int64_t>(r + 1) * cnl, i0, hi, bk);
+          act_m = load_act<P>(a.active + static_cast<int64_t>(r + 1) * a.lanes, i0, a.lanes, live);
         }
       }
-#pragma unroll
-      for (int v = 0; v < kPerThread && live; ++v) {
-        const uint32_t x = xv[v];
-        const int b = min(max(static_cast<int>(bk[v]), 0), contexts - 1);
-        const int ctx = min(cv[v], channels - 1) * contexts + b;
-        const uint32_t bi = s_bits[ctx];
-        const uint32_t top = 1u << bi;
-        const uint32_t slot = x & (top - 1u);
-        const uint16_t* row = s_cdf + ctx * kRowStride;
-        int s = 0;
-#pragma unroll
-        for (int step = kAlphabet / 2; step > 0; step >>= 1)
-          if (row[cdf_slot(s + step)] <= slot) s += step;
-        const uint32_t cd = row[cdf_slot(s)];
-        const uint32_t nx =
-            min(s + 1 < kAlphabet ? static_cast<uint32_t>(row[cdf_slot(s + 1)]) : top, top);
-        const uint32_t x2 = (nx - cd) * (x >> bi) + slot - cd;
-        sv[v] = static_cast<uint32_t>(s);
-        if (act_m >> v & 1u) {
-          xv[v] = x2;
-          if (x2 < kRansL) need_m |= 1u << v;
-        }
-      }
-      if (live) store8(sym_r, i0, live, sv);
-
-      // block-wide exclusive scan of the per-thread word counts
       const int cnt = __popc(need_m);
-      int incl = cnt;
+      const int incl = warp_incl_scan(cnt, lane);
+      int btot = 0;
+      const int local = block_scan(s_warp, par, cnt, incl, lane, warp, &btot);
+      int64_t base = 0, rowtot = 0;
+      exchange(s_tot, par, btot, lane, &base, &rowtot);
+      if (need_m) take_words<P>(a, g + base + local, need_m, xv);
+      g += rowtot;
+    }
 #pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(0xFFFFFFFFu, incl, d);
-        if (lane >= d) incl += y;
+    for (int v = 0; v < P; ++v)
+      if (live >> v & 1u) a.x_out[i0 + v] = static_cast<int64_t>(xv[v]);
+  } else {
+    constexpr int Q = kPerThread;
+    uint32_t* stage = reinterpret_cast<uint32_t*>(smem + tab);
+    uint32_t* xs = a.xwork + lo;  // xs[i - lo] is lane i's state
+    for (int64_t i = lo + static_cast<int64_t>(t) * Q; i < hi; i += kTile) {
+      uint32_t x0[Q];
+      uint32_t mask = 0;
+#pragma unroll
+      for (int v = 0; v < Q; ++v) {
+        x0[v] = i + v < hi ? static_cast<uint32_t>(a.x_in[i + v]) : 0u;
+        if (i + v < hi) mask |= 1u << v;
       }
-      if (lane == 31) s_warp[buf][warp] = incl;
-      __syncthreads();
-      if (warp == 0) {
-        int w = s_warp[buf][lane];
+      storep<Q>(xs, i - lo, mask, x0);
+    }
+    __syncthreads();  // the tables
+    int buf = 0;
+    for (int r = 0; r < a.rows; ++r) {
+      const uint32_t* bk_r = a.bkt + static_cast<int64_t>(r) * cnl;
+      const uint8_t* act_r = a.active + static_cast<int64_t>(r) * a.lanes;
+      uint32_t* sym_r = a.syms + static_cast<int64_t>(r) * cnl;
+      // pass A: symbols and states of every tile, block-local ranks
+      int local = 0;
+      int tile = 0;
+      for (int64_t b0 = lo; b0 < hi; b0 += kTile, ++tile) {
+        const int64_t i0 = b0 + static_cast<int64_t>(t) * Q;
+        uint32_t live = 0;
 #pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const int y = __shfl_up_sync(0xFFFFFFFFu, w, d);
-          if (lane >= d) w += y;
+        for (int v = 0; v < Q; ++v)
+          if (i0 + v < hi) live |= 1u << v;
+        uint32_t need_m = 0;
+        if (live) {
+          uint32_t xv[Q], bk[Q], sv[Q];
+          loadp<Q>(xs, i0 - lo, hi - lo, xv);
+          loadp<Q>(bk_r, i0, hi, bk);
+          const uint32_t act_m = load_act<Q>(act_r, i0, a.lanes, live);
+          need_m = decodep<Q>(s_bits, s_cdf, a, i0, bk, act_m, xv, sv);
+          storep<Q>(sym_r, i0, live, sv);
+          if (act_m) storep<Q>(xs, i0 - lo, act_m, xv);  // inactive lanes keep x
         }
-        s_warp[buf][lane] = w;
+        const int cnt = __popc(need_m);
+        const int incl = warp_incl_scan(cnt, lane);
+        int ttot = 0;
+        const int rank = block_scan(s_warp, buf, cnt, incl, lane, warp, &ttot);
+        // s_warp[buf] was read above while the next tile fills buf ^ 1;
+        // buf is written again only past the next tile's barrier
+        stage[tile * kThreads + t] = static_cast<uint32_t>(local + rank) << 8 | need_m;
+        local += ttot;
+        buf ^= 1;
       }
-      __syncthreads();
-      // s_warp[buf] is read below while the next tile fills s_warp[buf ^ 1];
-      // the tile after that writes buf again only past two more barriers
-      int64_t rank = g + (warp ? s_warp[buf][warp - 1] : 0) + incl - cnt;
-      const int total = s_warp[buf][kWarps - 1];
-      // the words of the thread's renorming lanes are consecutive: all 8
-      // loads go out together, clamped; a lane that takes no word drops its
-      uint32_t wv[kPerThread];
-#pragma unroll
-      for (int v = 0; v < kPerThread; ++v) {
-        const int64_t idx = rank < 0 ? 0 : (rank >= stream_len ? stream_len - 1 : rank);
-        wv[v] = static_cast<uint32_t>(stream[idx]);
-        rank += need_m >> v & 1u;
+      int64_t base = 0, rowtot = 0;
+      exchange(s_tot, r & 1, local, lane, &base, &rowtot);
+      // pass B: the words, each thread on its own lanes only
+      tile = 0;
+      for (int64_t b0 = lo; b0 < hi; b0 += kTile, ++tile) {
+        const uint32_t st = stage[tile * kThreads + t];
+        const uint32_t need_m = st & 0xFFu;
+        if (!need_m) continue;
+        const int64_t i0 = b0 + static_cast<int64_t>(t) * Q;
+        uint32_t xv[Q];
+        loadp<Q>(xs, i0 - lo, hi - lo, xv);
+        take_words<Q>(a, g + base + (st >> 8), need_m, xv);
+        storep<Q>(xs, i0 - lo, need_m, xv);
       }
+      g += rowtot;
+    }
+    for (int64_t i = lo + static_cast<int64_t>(t) * Q; i < hi; i += kTile) {
 #pragma unroll
-      for (int v = 0; v < kPerThread; ++v)
-        if (need_m >> v & 1u) xv[v] = (xv[v] << 16) | wv[v];
-      if (act_m) store8(xs, i0, act_m, xv);  // inactive lanes keep x
-      g += total;
-      buf ^= 1;
+      for (int v = 0; v < Q; ++v)
+        if (i + v < hi) a.x_out[i + v] = static_cast<int64_t>(xs[i - lo + v]);
     }
   }
-
-  for (int64_t i = static_cast<int64_t>(t) * kPerThread; i < cnl; i += kTile) {
-#pragma unroll
-    for (int v = 0; v < kPerThread; ++v)
-      if (i + v < cnl) x_out[i + v] = static_cast<int64_t>(xs[i + v]);
-  }
-  if (t == 0) *gptr_out = g;
+  // no block leaves while another may still read its s_tot
+  if (cg::this_cluster().num_blocks() > 1) cg::this_cluster().sync();
+  if (blk == 0 && t == 0) *a.gptr_out = g;
 }
 
-// The launch's shared-memory plan: the opt-in room, the dynamic bytes,
-// and whether the lane states fit there beside the tables.
-cudaError_t smem_plan(int channels, int lanes, int contexts, size_t* room,
-                      size_t* dyn, int* in_smem) {
-  if (channels < 1 || lanes < 1 || contexts < 1) return cudaErrorInvalidValue;
-  int dev = 0, optin = 0;
+// An empty exchange loop: `iters` rows of nothing but the cross-block
+// exchange of the decode kernel (a slot write, the cluster barrier, the
+// remote reads and their scan), the dependency floor of a wave.
+__global__ void __launch_bounds__(kThreads, 1) exchange_loop_kernel(int iters, int* sink) {
+  __shared__ int s_tot[2];
+  const int lane = threadIdx.x & 31;
+  int64_t acc = 0;
+  for (int r = 0; r < iters; ++r) {
+    int64_t base = 0, rowtot = 0;
+    exchange(s_tot, r & 1, r + lane, lane, &base, &rowtot);
+    acc += base + rowtot;
+  }
+  if (cg::this_cluster().num_blocks() > 1) cg::this_cluster().sync();
+  if (threadIdx.x == 0 && acc == -1) *sink = 1;  // keeps the loop
+}
+
+// The kernel variants by lanes a thread (0: several tiles a block).
+constexpr int kVariants[] = {1, 2, 4, 8, 0};
+constexpr int kNumVariants = 5;
+
+const void* kernel_of(int per) {
+  switch (per) {
+    case 1: return reinterpret_cast<const void*>(rans_decode_wave_kernel<1>);
+    case 2: return reinterpret_cast<const void*>(rans_decode_wave_kernel<2>);
+    case 4: return reinterpret_cast<const void*>(rans_decode_wave_kernel<4>);
+    case 8: return reinterpret_cast<const void*>(rans_decode_wave_kernel<8>);
+    default: return reinterpret_cast<const void*>(rans_decode_wave_kernel<0>);
+  }
+}
+
+struct Plan {
+  int cluster;
+  int per;  // lanes a thread of the one-tile variant, 0: several tiles
+  int64_t chunk;
+  size_t dyn;  // dynamic shared memory of a block
+};
+
+cudaLaunchConfig_t launch_config(int cluster, size_t dyn, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = dyn;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Whether `cluster` blocks of `fn` with `dyn` bytes can be resident at once.
+cudaError_t cluster_fits(const void* fn, int cluster, size_t dyn, bool* fits) {
+  if (cluster == 1) {
+    *fits = true;
+    return cudaSuccess;
+  }
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = launch_config(cluster, dyn, nullptr, &attr);
+  int n = 0;
+  cudaError_t err = cudaOccupancyMaxActiveClusters(&n, fn, &cfg);
+  if (err == cudaErrorInvalidClusterSize || err == cudaErrorInvalidConfiguration) {
+    cudaGetLastError();  // a refused size is an answer, not a fault
+    *fits = false;
+    return cudaSuccess;
+  }
+  *fits = n > 0;
+  return err;
+}
+
+// The device's shared-memory room for the dynamic part, after setting it
+// (and the non-portable cluster sizes) on every variant; once a device.
+cudaError_t device_room(size_t* room) {
+  static std::mutex mu;
+  static size_t rooms[64] = {};
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, rans_decode_wave_kernel);
   if (err != cudaSuccess) return err;
-  const size_t nctx = static_cast<size_t>(channels) * contexts;
-  const size_t tab = align16(nctx * 4) + align16(nctx * kRowStride * 2);
-  const size_t states = static_cast<size_t>(channels) * lanes * 4;
-  *room = static_cast<size_t>(optin) - attr.sharedSizeBytes;
-  if (tab > *room) return cudaErrorInvalidValue;
-  *in_smem = tab + states <= *room ? 1 : 0;
-  *dyn = tab + (*in_smem ? states : 0);
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (rooms[dev] == 0) {
+    int optin = 0;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    size_t stat = 0;
+    for (int k = 0; err == cudaSuccess && k < kNumVariants; ++k) {
+      cudaFuncAttributes fa;
+      err = cudaFuncGetAttributes(&fa, kernel_of(kVariants[k]));
+      if (err == cudaSuccess && fa.sharedSizeBytes > stat) stat = fa.sharedSizeBytes;
+    }
+    if (err != cudaSuccess) return err;
+    const size_t r = static_cast<size_t>(optin) - stat;
+    for (int k = 0; err == cudaSuccess && k < kNumVariants; ++k) {
+      const void* fn = kernel_of(kVariants[k]);
+      err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(r));
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    }
+    if (err != cudaSuccess) return err;
+    rooms[dev] = r;
+  }
+  *room = rooms[dev];
   return cudaSuccess;
+}
+
+// The launch plan of a wave: the cluster size (`want`, or the rule's at
+// 0), the lanes of a block and of a thread. With check_fit, the size is
+// lowered (rule) or refused (`want`) while cudaOccupancyMaxActiveClusters
+// says its blocks cannot be resident at once; without it, a size that
+// cannot be resident is refused by the launch.
+cudaError_t make_plan(int channels, int lanes, int contexts, int want, bool check_fit,
+                      Plan* p) {
+  if (channels < 1 || lanes < 1 || contexts < 1) return cudaErrorInvalidValue;
+  const int64_t cnl = static_cast<int64_t>(channels) * lanes;
+  if (cnl >= (int64_t{1} << 24)) return cudaErrorInvalidValue;  // ranks fit 24 bits
+  if (want < 0 || want > kMaxCluster || (want & (want - 1)) != 0) return cudaErrorInvalidValue;
+  size_t room = 0;
+  cudaError_t err = device_room(&room);
+  if (err != cudaSuccess) return err;
+  const size_t tab = table_bytes(channels * contexts);
+  int s = want;
+  if (s == 0) {
+    s = 1;
+    while (s < kMaxCluster && (cnl + s - 1) / s > kBlockLanes) s *= 2;
+  }
+  for (;; s /= 2) {
+    const int64_t chunk = ((cnl + s - 1) / s + kPerThread - 1) / kPerThread * kPerThread;
+    int per = 0;
+    for (int k = 0; k < kNumVariants - 1 && per == 0; ++k)
+      if (chunk <= static_cast<int64_t>(kThreads) * kVariants[k]) per = kVariants[k];
+    // several tiles: one staged (rank, mask) word a thread and tile
+    const size_t dyn =
+        tab + (per ? 0 : align16(static_cast<size_t>((chunk + kTile - 1) / kTile) * kThreads * 4));
+    if (dyn > room) return cudaErrorInvalidValue;
+    bool fits = true;
+    if (check_fit) {
+      err = cluster_fits(kernel_of(per), s, dyn, &fits);
+      if (err != cudaSuccess) return err;
+    }
+    if (fits) {
+      *p = Plan{s, per, chunk, dyn};
+      return cudaSuccess;
+    }
+    if (want != 0 || s == 1) return cudaErrorInvalidClusterSize;
+  }
+}
+
+template <int P>
+cudaError_t launch(const cudaLaunchConfig_t& cfg, const WaveArgs& a) {
+  return cudaLaunchKernelEx(&cfg, rans_decode_wave_kernel<P>, a);
 }
 
 }  // namespace
 
-// 1 in *fits where the states of channels x lanes sit in shared memory,
-// so that frave_rans_decode_wave needs no xwork buffer; 0 where they need
-// one of channels * lanes u32.
-extern "C" int frave_rans_decode_states_fit(int channels, int lanes, int contexts,
-                                            int* fits) {
-  size_t room = 0, dyn = 0;
-  return static_cast<int>(smem_plan(channels, lanes, contexts, &room, &dyn, fits));
+// The launch plan of frave_rans_decode_wave for channels x lanes with
+// `contexts` contexts: *cluster the blocks it runs (`want`, a power of two
+// up to 16 that must be resident at once, or 0 for the launch rule),
+// *xwork_words the u32 state buffer it needs (0: none).
+extern "C" int frave_rans_decode_plan(int channels, int lanes, int contexts, int want,
+                                      int* cluster, int* xwork_words) {
+  Plan p;
+  const cudaError_t err = make_plan(channels, lanes, contexts, want, true, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *cluster = p.cluster;
+  *xwork_words = p.per ? 0 : channels * lanes;
+  return 0;
 }
 
 extern "C" int frave_rans_decode_wave(const void* x_in, const void* gptr_in,
@@ -290,27 +606,57 @@ extern "C" int frave_rans_decode_wave(const void* x_in, const void* gptr_in,
                                       const void* bits, void* syms,
                                       void* x_out, void* gptr_out, void* xwork,
                                       int rows, int channels, int lanes,
-                                      int contexts, int stream_len,
+                                      int contexts, int stream_len, int cluster,
                                       void* cuda_stream) {
-  if (rows < 0 || stream_len < 1) return static_cast<int>(cudaErrorInvalidValue);
-  size_t room = 0, dyn = 0;
-  int in_smem = 0;
-  cudaError_t err = smem_plan(channels, lanes, contexts, &room, &dyn, &in_smem);
+  if (rows < 0 || stream_len < 1 || cluster < 1) return static_cast<int>(cudaErrorInvalidValue);
+  Plan p;
+  cudaError_t err = make_plan(channels, lanes, contexts, cluster, false, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (!in_smem && xwork == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  // always the same value (the whole opt-in room), so concurrent callers
-  // cannot lower it between another caller's set and launch
-  err = cudaFuncSetAttribute(rans_decode_wave_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(room));
+  if (p.per == 0 && xwork == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  WaveArgs a;
+  a.x_in = static_cast<const int64_t*>(x_in);
+  a.gptr_in = static_cast<const int64_t*>(gptr_in);
+  a.bkt = static_cast<const uint32_t*>(bkt);
+  a.active = static_cast<const uint8_t*>(active);
+  a.stream = static_cast<const int32_t*>(stream);
+  a.cdf = static_cast<const int32_t*>(cdf);
+  a.bits = static_cast<const int32_t*>(bits);
+  a.syms = static_cast<uint32_t*>(syms);
+  a.x_out = static_cast<int64_t*>(x_out);
+  a.gptr_out = static_cast<int64_t*>(gptr_out);
+  a.xwork = static_cast<uint32_t*>(xwork);
+  a.rows = rows;
+  a.channels = channels;
+  a.lanes = lanes;
+  a.contexts = contexts;
+  a.stream_len = stream_len;
+  a.chunk = p.chunk;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config(p.cluster, p.dyn, static_cast<cudaStream_t>(cuda_stream), &attr);
+  switch (p.per) {
+    case 1: err = launch<1>(cfg, a); break;
+    case 2: err = launch<2>(cfg, a); break;
+    case 4: err = launch<4>(cfg, a); break;
+    case 8: err = launch<8>(cfg, a); break;
+    default: err = launch<0>(cfg, a); break;
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  rans_decode_wave_kernel<<<1, kThreads, dyn, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<const int64_t*>(x_in), static_cast<const int64_t*>(gptr_in),
-      static_cast<const uint32_t*>(bkt), static_cast<const uint8_t*>(active),
-      static_cast<const int32_t*>(stream), stream_len,
-      static_cast<const int32_t*>(cdf), static_cast<const int32_t*>(bits),
-      static_cast<uint32_t*>(syms), static_cast<int64_t*>(x_out),
-      static_cast<int64_t*>(gptr_out), static_cast<uint32_t*>(xwork), rows,
-      channels, lanes, contexts, in_smem);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `iters` rows of the decode kernel's cross-block exchange alone, on one
+// cluster of `cluster` blocks of 1024 threads (the dependency floor's
+// measurement; `sink` is one int the kernel never writes in practice).
+extern "C" int frave_exchange_loop(int iters, int cluster, void* sink, void* cuda_stream) {
+  if (iters < 0 || cluster < 1 || cluster > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn = reinterpret_cast<const void*>(exchange_loop_kernel);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config(cluster, 0, static_cast<cudaStream_t>(cuda_stream), &attr);
+  err = cudaLaunchKernelEx(&cfg, exchange_loop_kernel, iters, static_cast<int*>(sink));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,7 +2,7 @@
 frave_tpu/entropy/tables_jax.py.
 
 finalize_contexts_device is an exact integer twin of the host
-frave_tpu/entropy/tables.finalize_context (the decoder regenerates the
+entropy/tables.finalize_context (the decoder regenerates the
 tables from the wire fields, and rANS breaks on any 1-bit difference).
 select_scales_device picks the Laplace-grid scale per context; the index
 travels on the wire, so it is encode-only and need not match another
@@ -13,11 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from frave_tpu.entropy.tables import (
-    ENC_FREQ_BITS_CAP,
-    MAX_FREQ_BITS_CAP,
-    MIN_FREQ_BITS,
-)
+from .tables import ENC_FREQ_BITS_CAP, MAX_FREQ_BITS_CAP, MIN_FREQ_BITS
 
 
 def _bits_from_total(total: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,10 @@
-"""Torch executor for frave_tpu/fractal/gridplan.py plans.
+"""Torch executor for fractal/gridplan.py plans.
 
 gridplan.apply_plan runs a host-verified op list (pad, transpose, flip,
-flat-stride, and the rare explicit "take") with numpy or jax.numpy. Two
-of its spellings have no torch form — numpy's pad-width pairs and
-`flip(axis=)` — so this executor restates the same ops for torch, on the
-two trailing axes of a tensor with any leading (channel) dims. The plans
-themselves come from frave_tpu unchanged.
+flat-stride, and the rare explicit "take") on numpy arrays. Two of its
+spellings have no torch form — numpy's pad-width pairs and `flip(axis=)` —
+so this executor restates the same ops for torch, on the two trailing
+axes of a tensor with any leading (channel) dims.
 """
 
 from __future__ import annotations
@@ -13,7 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from frave_tpu.fractal.gridplan import GridPlan
+from .gridplan import GridPlan
 
 
 def _pad_last(t: torch.Tensor, lo: int, hi: int, fill) -> torch.Tensor:

@@ -2,9 +2,12 @@
 
 Seeded inputs at a given shape, the kernel wrapper and the plain version
 run on the same device tensors, the largest absolute difference of their
-outputs (the kernels are integer, so anything but 0 is a fault) and,
-optionally, the median time of each over repeated launches, measured with
-CUDA events. Used by chip_smoke.py and by the card-only test.
+outputs (the kernels are integer, so anything but 0 is a fault), the
+bytes the function must move and, optionally, times: the wrapper's device
+time per call (device_ms: back-to-back calls the host enqueues behind a
+sleep kernel, CUDA events), and the wrapper's and the plain version's
+median time per call with the host's share (CUDA events). Used by
+chip_smoke.py and by the card-only test.
 """
 
 from __future__ import annotations
@@ -12,8 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from frave_tpu.entropy.tables import ALPHABET_SIZE, CONTEXT_AMOUNT, _LAPLACE_GRID_ROWS
-
+from .entropy.tables import ALPHABET_SIZE, CONTEXT_AMOUNT, _LAPLACE_GRID_ROWS
 from .entropy.tables_torch import finalize_contexts_device
 from .ops import lifting as L
 from .ops import rans_torch as RT
@@ -45,6 +47,10 @@ KERNELS = {
         "frave_tpu/ops/pallas_rans.py:328",
     ),
 }
+# the card's memory rate the byte bound is taken at (H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
+# cluster sizes kernel 3 can be forced to
+CLUSTERS = (1, 2, 4, 8, 16)
 # problem kinds of decode_scan_wave (the other kernels have one kind, None)
 DECODE_KINDS = ("valid", "garbage")
 
@@ -182,7 +188,8 @@ def _max_abs_err(a, b) -> int:
 
 
 def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median time of fn() on the current CUDA stream, CUDA events."""
+    """Median time of fn() on the current CUDA stream, CUDA events (host
+    work inside fn counts where the device waits for it)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -197,19 +204,95 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time (ms) per fn() of `reps` calls run back to back: a sleep
+    kernel keeps the device busy while the host enqueues them, so the host's
+    share per call drops out. Raises if the host cannot get ahead."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    cycles = int(2e9 * (2 * reps * (time.perf_counter() - t) + 1e-3))
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t) * 1e3
+        ev[2].record()
+        ev[2].synchronize()
+        if host_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / reps
+        cycles *= 2
+    raise RuntimeError("the host did not get ahead of the device")
+
+
+def _nbytes(a) -> int:
+    if isinstance(a, (tuple, list)):
+        return sum(_nbytes(x) for x in a)
+    if isinstance(a, dict):
+        return sum(_nbytes(x) for x in a.values())
+    return a.numel() * a.element_size() if isinstance(a, torch.Tensor) else 0
+
+
+def bytes_moved(name: str, args, out) -> int:
+    """The bytes kernel `name` must move on these operands: every input
+    read once and every output written once; of decode_scan_wave's stream,
+    only the words the wave consumes (the rest is padding it never reads)."""
+    if name != "decode_scan_wave":
+        return _nbytes(args) + _nbytes(out)
+    x, gptr, buckets, active, stream, tabs = args
+    used = int(out[2]) - int(gptr)
+    return (_nbytes((x, gptr, buckets, active, tabs)) + used * stream.element_size()
+            + _nbytes(out))
+
+
 def check(name: str, shape, device, seed: int = 0, timed: bool = False,
-          kind=None) -> dict:
+          kind=None, clusters=(0,)) -> dict:
     """Kernel `name` vs its plain version on the same `device` tensors at
-    `shape` (problem `kind`, see problem()). Returns {"name", "shape",
-    "kind", "max_abs_err", "ms", "plain_ms"} (times None unless timed)."""
+    `shape` (problem `kind`, see problem()). decode_scan_wave runs at each
+    cluster size of `clusters` (0: its launch rule) against one plain
+    result. Returns {"name", "shape", "kind", "cluster" (the size the first
+    of `clusters` ran at; None for the other kernels), "max_abs_err" (the
+    largest over `clusters`), "errs" ({cluster: err}), "bytes", "bound_ms",
+    "ms" (device_ms of the wrapper), "wrapper_ms" (median_ms of the
+    wrapper, the host's share included), "plain_ms"} (times None unless
+    timed; a timed decode_scan_wave also gives "cluster_ms" {cluster:
+    device ms})."""
     wrapper, plain, _, _ = KERNELS[name]
     args, extra = problem(name, np.random.default_rng(seed), shape, kind)
     args = tuple(_to(a, device) for a in args)
-    got = wrapper(*args, *extra)
+    decode = name == "decode_scan_wave"
+    if not decode and tuple(clusters) != (0,):
+        raise ValueError(f"{name} has no cluster size")
     ref = plain(*args, *extra)
-    out = {"name": name, "shape": list(shape), "kind": kind,
-           "max_abs_err": _max_abs_err(got, ref), "ms": None, "plain_ms": None}
+    errs = {}
+    for size in clusters:
+        kw = {"cluster": size} if decode else {}
+        errs[size] = _max_abs_err(wrapper(*args, *extra, **kw), ref)
+    ran = None
+    if decode and device.type == "cuda":
+        ran = RT.decode_plan(shape[1], shape[2], args[5]["bits"].shape[-1], clusters[0])[0]
+    nbytes = bytes_moved(name, args, ref)
+    out = {"name": name, "shape": list(shape), "kind": kind, "cluster": ran,
+           "max_abs_err": max(errs.values()), "errs": errs, "bytes": nbytes,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "ms": None, "wrapper_ms": None, "plain_ms": None}
     if timed:
-        out["ms"] = median_ms(lambda: wrapper(*args, *extra))
+        kw = {"cluster": clusters[0]} if decode else {}
+        call = lambda: wrapper(*args, *extra, **kw)  # noqa: E731
+        out["ms"] = device_ms(call)
+        out["wrapper_ms"] = median_ms(call)
         out["plain_ms"] = median_ms(lambda: plain(*args, *extra))
+        if decode:
+            out["cluster_ms"] = {
+                size: device_ms(lambda: wrapper(*args, cluster=size))
+                for size in clusters
+            }
     return out

@@ -1,11 +1,15 @@
 """Build and load the port's CUDA kernels (frave_tpu_torch/csrc/*.cu).
 
 The sources have a plain C interface, so they compile with nvcc alone —
-no PyTorch headers — into one shared library that ctypes loads:
+no PyTorch headers — into one shared library that ctypes loads: one nvcc
+per source, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o frave_tpu_torch/_build/libfrave_kernels_<key>.so
-         frave_tpu_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <source>.o frave_tpu_torch/csrc/<source>.cu
+
+then one link, ``nvcc -shared -o frave_tpu_torch/_build/libfrave_kernels_<key>.so
+*.o``. ``ptxas_report`` keeps what ptxas printed per source (registers,
+shared memory and spills of every kernel).
 
 The build runs on first use (a few seconds), never at import. Its output
 goes to ``frave_tpu_torch/_build/``, named by a hash of the sources and
@@ -32,7 +36,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -43,13 +47,15 @@ _SIGNATURES = {
     "frave_fwd_lift_quant": [_P, _P, _I, _P, _P, _I, _I, _P],
     "frave_inv_lift": [_P, _P, _P, _I, _P, _P, _I, _I, _P],
     "frave_rans_encode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "frave_rans_decode_wave": [_P] * 11 + [_I] * 5 + [_P],
-    "frave_rans_decode_states_fit": [_I, _I, _I, ctypes.POINTER(_I)],
+    "frave_rans_decode_wave": [_P] * 11 + [_I] * 6 + [_P],
+    "frave_rans_decode_plan": [_I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    "frave_exchange_loop": [_I, _I, _P, _P],
 }
 
 _lock = threading.Lock()
 _lib = None
 build_seconds = None  # wall time of the build (None: loaded from cache)
+ptxas_report = {}  # source name -> ptxas's output (empty: loaded from cache)
 
 
 def _sources():
@@ -71,6 +77,35 @@ def _nvcc() -> str:
     return path
 
 
+def _compile(sources, out: Path) -> None:
+    """One nvcc per source, all at once, then the link into `out`."""
+    nvcc = _nvcc()
+    objdir = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        procs = []
+        for src in sources:
+            obj = objdir / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append((src, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for src, cmd, proc in procs:
+            _, err = proc.communicate()
+            ptxas_report[src.name] = err
+            if proc.returncode != 0:
+                failed.append(" ".join(cmd) + "\n" + err)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = objdir / out.name
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(objdir / (s.stem + ".o")) for s in sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + " ".join(cmd) + "\n" + proc.stderr)
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+    finally:
+        shutil.rmtree(objdir, ignore_errors=True)
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; raises on failure."""
     global _lib, build_seconds
@@ -83,17 +118,8 @@ def load_library() -> ctypes.CDLL:
         out = BUILD_DIR / f"libfrave_kernels_{_cache_key(sources)}.so"
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    "nvcc failed:\n" + " ".join(cmd) + "\n" + proc.stderr
-                )
-            os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+            _compile(sources, out)
             build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(out))
         for name, argtypes in _SIGNATURES.items():

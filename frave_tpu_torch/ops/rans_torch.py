@@ -30,8 +30,7 @@ import ctypes
 
 import torch
 
-from frave_tpu.entropy.tables import ALPHABET_SIZE, MAX_FREQ_BITS_CAP
-
+from ..entropy.tables import ALPHABET_SIZE, MAX_FREQ_BITS_CAP
 from . import _build
 
 RANS_L = 1 << 16
@@ -231,11 +230,27 @@ def decode_scan_wave_plain(x, gptr, buckets, active, stream, tabs):
     return syms, x, gptr
 
 
-def decode_scan_wave(x, gptr, buckets, active, stream, tabs):
+def decode_plan(channels: int, lanes: int, contexts: int, cluster: int = 0):
+    """Kernel 3's launch plan on the current CUDA device: (the cluster size
+    it runs, the u32 words of device-memory state buffer it needs). `cluster`
+    0 takes the launch rule (csrc/rans_decode.cu); a power of two up to 16
+    forces that size, for the kernel checks, and raises where it cannot be
+    resident."""
+    lib = _build.load_library()
+    size, words = ctypes.c_int(0), ctypes.c_int(0)
+    code = lib.frave_rans_decode_plan(
+        channels, lanes, contexts, cluster, ctypes.byref(size), ctypes.byref(words)
+    )
+    _build.check(code, "frave_rans_decode_plan")
+    return size.value, words.value
+
+
+def decode_scan_wave(x, gptr, buckets, active, stream, tabs, cluster: int = 0):
     """Every rANS decode row of one grid wave (replaces
     pallas_rans.decode_scan_wave): kernel 3 (csrc/rans_decode.cu
-    frave_rans_decode_wave, one launch for all R rows) on the card, the
-    plain row loop decode_scan_wave_plain on the CPU.
+    frave_rans_decode_wave, one launch of one thread-block cluster for all
+    R rows) on the card, the plain row loop decode_scan_wave_plain on the
+    CPU.
 
     x [C, NL] int64 lane states (u32 values); gptr 0-d int64 stream
     position (a device tensor: nothing is read back to the host);
@@ -249,7 +264,9 @@ def decode_scan_wave(x, gptr, buckets, active, stream, tabs):
     active lanes with x' < 2^16 take one word each, stream[gptr + rank]
     with the rank channel-major, lane-minor (schedule.build_stream_perm)
     and the index clamped to [0, W-1]; inactive lanes keep x. Symbols are
-    computed on every lane. Returns (syms [R, C, NL] int32, x', gptr')."""
+    computed on every lane. `cluster` forces the kernel's cluster size
+    (decode_plan; 0, the launch rule, everywhere but the kernel checks).
+    Returns (syms [R, C, NL] int32, x', gptr')."""
     R, C, NL = buckets.shape
     ca = tabs["bits"].shape[-1]
     _check_grid("x", x, (C, NL), (torch.int64,))
@@ -270,21 +287,19 @@ def decode_scan_wave(x, gptr, buckets, active, stream, tabs):
     if any(t.device != dev for t in ops):
         raise ValueError(f"all operands must lie on {dev}")
     lib = _build.load_library()
+    size, words = decode_plan(C, NL, ca, cluster)
     act = active.view(torch.uint8) if active.dtype == torch.bool else active
     syms = torch.empty((R, C, NL), dtype=torch.int32, device=dev)
     x_out = torch.empty_like(x)
     g_out = torch.empty_like(gptr)
-    fits = ctypes.c_int(0)
-    code = lib.frave_rans_decode_states_fit(C, NL, ca, ctypes.byref(fits))
-    _build.check(code, "frave_rans_decode_states_fit")
-    # the kernel's state buffer, where the states do not fit shared memory
-    work = None if fits.value else torch.empty(C * NL, dtype=torch.int32, device=dev)
+    # the lane states of several-tile blocks (a forced small cluster)
+    work = torch.empty(words, dtype=torch.int32, device=dev) if words else None
     code = lib.frave_rans_decode_wave(
         x.data_ptr(), gptr.data_ptr(), buckets.data_ptr(), act.data_ptr(),
         stream.data_ptr(), tabs["cdf"].data_ptr(), tabs["bits"].data_ptr(),
         syms.data_ptr(), x_out.data_ptr(), g_out.data_ptr(),
         None if work is None else work.data_ptr(),
-        R, C, NL, ca, stream.shape[0], _build.current_stream(dev),
+        R, C, NL, ca, stream.shape[0], size, _build.current_stream(dev),
     )
     _build.check(code, "frave_rans_decode_wave")
     decode_scan_wave.launches += 1
@@ -292,3 +307,14 @@ def decode_scan_wave(x, gptr, buckets, active, stream, tabs):
 
 
 decode_scan_wave.launches = 0
+
+
+def exchange_loop(iters: int, cluster: int, device) -> None:
+    """Launch `iters` rows of kernel 3's cross-block exchange alone on one
+    cluster of `cluster` blocks (csrc/rans_decode.cu frave_exchange_loop):
+    the dependency floor of a wave, timed by chip_smoke.py. Not a kernel of
+    the codec path: it has no launch count."""
+    lib = _build.load_library()
+    sink = torch.zeros(1, dtype=torch.int32, device=device)
+    code = lib.frave_exchange_loop(iters, cluster, sink.data_ptr(), _build.current_stream(device))
+    _build.check(code, "frave_exchange_loop")

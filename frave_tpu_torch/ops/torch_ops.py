@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from frave_tpu.entropy.tables import BUCKET_EDGES as _BUCKET_EDGES
+from ..entropy.tables import BUCKET_EDGES as _BUCKET_EDGES
 
 PRED_CLAMP = 255  # see frave_tpu/ops/prediction.py
 

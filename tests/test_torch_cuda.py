@@ -17,17 +17,22 @@ SHAPES = {
     # R x C x NL up to 2048x2048 RGB's 16,384 lanes and the pinned 32,768;
     # C * NL = 609 leaves every row but the first unaligned for 16-byte loads
     "decode_scan_wave": [(7, 1, 32), (40, 1, 512), (60, 3, 2048), (30, 3, 16384),
-                         (4, 3, 32768), (9, 3, 203)],
+                         (4, 3, 32768), (9, 3, 203), (3, 3, 65535)],
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(SHAPES))
 def test_cuda_kernel_matches_plain(name):
+    """decode_scan_wave at its launch rule's cluster size and at every
+    size it can be forced to."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
-    kinds = kernel_check.DECODE_KINDS if name == "decode_scan_wave" else (None,)
+    decode = name == "decode_scan_wave"
+    kinds = kernel_check.DECODE_KINDS if decode else (None,)
+    clusters = (0,) + kernel_check.CLUSTERS if decode else (0,)
     for shape in SHAPES[name]:
         for kind in kinds:
-            res = kernel_check.check(name, shape, torch.device("cuda"), kind=kind)
+            res = kernel_check.check(name, shape, torch.device("cuda"), kind=kind,
+                                     clusters=clusters)
             assert res["max_abs_err"] == 0, res

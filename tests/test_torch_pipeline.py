@@ -15,6 +15,9 @@ their program caches cleared around each case.
   * containers cross-decode to identical pixels: the port's on
     frave_tpu's jax, numpy (and native, when built) decoders, and
     frave_tpu's on the port.
+
+The port takes only its own EncoderOptions and RasterImage: port_opts
+and port_image convert frave_tpu's field by field.
 """
 
 import dataclasses
@@ -33,12 +36,29 @@ from frave_tpu import EncoderOptions, RasterImage
 from frave_tpu.codec import grid_decode as GDJ
 from frave_tpu.codec import pipeline_jax as PJ
 from frave_tpu.codec.channel_transform import choose_transform
-from frave_tpu.codec.container import SerializeError, serialize
+from frave_tpu.codec.container import serialize
 from frave_tpu.native import have_native
+from frave_tpu_torch import images as PI
+from frave_tpu_torch.codec import options as PO
 from frave_tpu_torch.codec import pipeline_torch as PT
+from frave_tpu_torch.codec.container import SerializeError
+from frave_tpu_torch.codec.container import serialize as port_serialize
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def port_opts(opts: EncoderOptions) -> PO.EncoderOptions:
+    """frave_tpu's EncoderOptions as the port's, field by field (the
+    fields the port has; the quality preset by name)."""
+    kw = {f.name: getattr(opts, f.name) for f in dataclasses.fields(PO.EncoderOptions)}
+    kw["quality"] = PO.EncoderQuality[opts.quality.name]
+    return PO.EncoderOptions(**kw)
+
+
+def port_image(img: RasterImage) -> PI.RasterImage:
+    """frave_tpu's RasterImage as the port's (the colorspace by name)."""
+    return PI.RasterImage.from_array(img.data, PI.ColorSpace[img.metadata.colorspace.name])
 
 
 def _natural(h, w, c, seed):
@@ -92,7 +112,7 @@ def _assert_fits_agree(ci_t, ci_j, C):
         assert uv.max() <= 1, (c, uv.max(axis=1))
         uw = _f16_ulps(dt.width_prediction_parameters, dj.width_prediction_parameters)
         assert (uw.max(axis=1) > 1).sum() <= 1, (c, uw.max(axis=1))
-    nt, nj = len(serialize(ci_t)), len(serialize(ci_j))
+    nt, nj = len(port_serialize(ci_t)), len(serialize(ci_j))
     assert abs(nt - nj) <= 0.01 * nj, (nt, nj)
 
 
@@ -127,12 +147,12 @@ def check_slice(env, h, w, c, genc, seed):
 
     # --- unpinned: both fit, then cross-decode everywhere
     ci_j = PJ.encode_pipeline_jax(img, opts)
-    ci_t = PT.encode_pipeline_torch(img, opts, "cpu")
+    ci_t = PT.encode_pipeline_torch(port_image(img), port_opts(opts), "cpu")
     assert ci_t.num_lanes == ci_j.num_lanes and ci_t.transform == ci_j.transform
     prog_t = PT.get_program(h, w, ci_t.num_lanes, c, "cpu")
     assert (prog_t.grid_enc is not None) == (genc == "force")
     _assert_fits_agree(ci_t, ci_j, c)
-    blob_t, blob_j = serialize(ci_t), serialize(ci_j)
+    blob_t, blob_j = port_serialize(ci_t), serialize(ci_j)
     for backend in _decoders():
         out = frave_tpu.decode(blob_t, backend=backend)
         np.testing.assert_array_equal(out.data, px, err_msg=backend)
@@ -169,7 +189,7 @@ def check_slice(env, h, w, c, genc, seed):
         packed_j[exp_bits_words].view(np.float32), rtol=1e-5,
     )
     np.testing.assert_array_equal(hist_t.numpy(), np.asarray(hist_j)[0])
-    blob_tp = serialize(PT.encode_pipeline_torch(img, opts_p, "cpu"))
+    blob_tp = port_serialize(PT.encode_pipeline_torch(port_image(img), port_opts(opts_p), "cpu"))
     blob_jp = serialize(PJ.encode_pipeline_jax(img, opts_p))
     assert blob_tp == blob_jp
 
@@ -217,10 +237,10 @@ def test_lossy_preset_matches_frave_tpu(h, w, c, quality, ctf):
     px = _natural(h, w, c, 21)
     img = RasterImage.from_array(px)
     opts = _pinned_opts(img, q, color_transform=ctf)
-    ci_t = PT.encode_pipeline_torch(img, opts, "cpu")
+    ci_t = PT.encode_pipeline_torch(port_image(img), port_opts(opts), "cpu")
     if c == 3:
         assert ci_t.transform == choose_transform(px, ctf, quality == "LOSSLESS")
-    blob_t = serialize(ci_t)
+    blob_t = port_serialize(ci_t)
     assert blob_t == serialize(PJ.encode_pipeline_jax(img, opts))
     ref = frave_tpu.decode(blob_t, backend="jax").data
     assert np.array_equal(ref, px) == (quality == "LOSSLESS")
@@ -240,11 +260,11 @@ def test_trial_transform_matches_frave_tpu(c, quality):
     img = RasterImage.from_array(px)
     opts = _pinned_opts(img, EncoderQuality[quality])
     opts = dataclasses.replace(opts, color_transform="trial", backend="jax")
-    blob_t = frave_tpu_torch.encode(img, opts, device="cpu")
+    blob_t = frave_tpu_torch.encode(port_image(img), port_opts(opts), device="cpu")
     assert blob_t == FRIEncoder(opts).encode(img)
     if c == 1:
-        auto = dataclasses.replace(opts, color_transform="auto")
-        assert blob_t == frave_tpu_torch.encode(img, auto, device="cpu")
+        auto = port_opts(dataclasses.replace(opts, color_transform="auto"))
+        assert blob_t == frave_tpu_torch.encode(port_image(img), auto, device="cpu")
 
 
 def test_flat_content_reencodes_at_rate_adaptive_lanes(env):
@@ -254,9 +274,9 @@ def test_flat_content_reencodes_at_rate_adaptive_lanes(env):
 
     px = np.full((256, 256, 1), 77, dtype=np.uint8)
     px[100:140, 60:200] = 200
-    ci = PT.encode_pipeline_torch(RasterImage.from_array(px), EncoderOptions(), "cpu")
+    ci = PT.encode_pipeline_torch(PI.RasterImage.from_array(px), PO.EncoderOptions(), "cpu")
     assert ci.num_lanes < default_num_lanes(get_schedule(256, 256, mode="grid").num_symbols)
-    out = frave_tpu.decode(serialize(ci), backend="numpy")
+    out = frave_tpu.decode(port_serialize(ci), backend="numpy")
     np.testing.assert_array_equal(out.data, px)
 
 
@@ -307,8 +327,10 @@ def test_unported_shapes_and_devices_raise():
         PT.get_program(16, 16, 16, 1, "cpu")  # no dense lattice grid
     with pytest.raises(NotImplementedError):
         frave_tpu_torch.encode(
-            np.zeros((64, 64), np.uint8), EncoderOptions(mode="parallel"), device="cpu"
+            np.zeros((64, 64), np.uint8), PO.EncoderOptions(mode="parallel"), device="cpu"
         )
+    with pytest.raises(TypeError):  # the port takes only its own options
+        frave_tpu_torch.encode(np.zeros((64, 64), np.uint8), EncoderOptions(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             frave_tpu_torch.encode(np.zeros((64, 64), np.uint8), device="cuda")
