@@ -10,22 +10,29 @@ script exits nonzero without printing a result:
                per source, all at once) and, beside them, the C++ frif
                oracle (csrc/frif.cpp + csrc/geometry.cpp, g++) into
                frave_tpu_torch/_build/, bound with ctypes here;
-  2. kernels — each kernel against its plain PyTorch version on the same
-               card tensors, bit-equal, at the shapes every image of the
-               main path gives it (lifting rows, encode grid, largest
-               decode wave); decode_scan_wave also on valid and garbage
-               waves up to 32,768 lanes, at its launch rule's cluster size
-               and forced to 1, 2, 4, 8 and 16 blocks. Kernel times are
-               device times of back-to-back calls (kernel_check.device_ms),
-               beside the wrapper's and the plain version's CUDA-event
-               medians per call; the byte bound of each; the empty
-               cross-block exchange loop at 2, 4, 8 and 16 blocks;
+  2. kernels — each image's CodecProgram built (timed); each kernel
+               against its plain PyTorch version on the same card
+               tensors, bit-equal, at the shapes every image of the main
+               path gives it (lifting rows; encode_scan's grid under a row
+               map of several waves with partly filled last rows, and at
+               every design point: rows loaded ahead x lanes a block;
+               dequantize_inverse_lift_pixels on the image's own program,
+               every transform id at C = 3; the largest decode wave);
+               decode_scan_wave also on valid and garbage waves up to
+               32,768 lanes, at its launch rule's cluster size and forced
+               to 1, 2, 4, 8 and 16 blocks. Kernel times are device times
+               of back-to-back calls (kernel_check.device_ms), beside the
+               wrapper's and the plain version's CUDA-event medians per
+               call; the byte bound of each; the empty cross-block
+               exchange loop at 2, 4, 8 and 16 blocks;
   3. main    — the port's public encode -> decode (seeded
                natural-statistics images), three paths (a-c), each with the
                launch counts zeroed just before it and read just after it
-               (every kernel launched, decode_scan_wave once per non-empty
-               wave, the plain decode row never; every container at the
-               lane count the kernels phase checked). Every image is held
+               (every kernel launched, encode_scan once an encode,
+               dequantize_inverse_lift_pixels once a decode,
+               decode_scan_wave once per non-empty wave, the plain decode
+               row never; every container at the lane count the kernels
+               phase checked). Every image is held
                against the reference by sources that are not the JAX
                package's Python: the C++ oracle decodes the port's
                container to the port's pixels, and the port decodes the
@@ -42,9 +49,10 @@ script exits nonzero without printing a result:
                   time and peak device memory;
   4. report  — encode/decode ms and MP/s, per-stage ms at every image, kernel
                3's device time per 2048x2048 RGB decode at the launch rule
-               and forced to one block, peak device memory, the card's name
-               and power limit, then one JSON line of kernels and, last,
-               the result line.
+               and forced to one block, kernel B's device time with and
+               without its pixel stores, peak device memory, the card's
+               name and power limit, then one JSON line of kernels and,
+               last, the result line.
 
 Needs CUDA (exits 1 without it); imports neither jax nor frave_tpu.
 """
@@ -69,6 +77,7 @@ from frave_tpu_torch.codec import pipeline_torch as PT
 from frave_tpu_torch.codec.channel_transform import choose_transform
 from frave_tpu_torch.codec.container import SerializeError, deserialize
 from frave_tpu_torch.entropy.tables import (
+    CONTEXT_AMOUNT,
     ENC_FREQ_BITS_CAP,
     MIN_FREQ_BITS,
     _GRID_LOG2,
@@ -264,22 +273,25 @@ def zero_counts():
     RT.decode_row.calls = 0
 
 
-def read_counts(label: str, waves: int) -> dict:
-    """The counts since zero_counts(): every kernel must have launched,
-    decode_scan_wave exactly once per non-empty wave of the decodes
-    (`waves` in all), and the plain decode row must not have run."""
+def read_counts(label: str, waves: int, trips: int) -> dict:
+    """The counts since zero_counts() over `trips` encode -> decode round
+    trips: every kernel must have launched, encode_scan once an encode,
+    dequantize_inverse_lift_pixels once a decode, decode_scan_wave exactly
+    once per non-empty wave of the decodes (`waves` in all), and the plain
+    decode row must not have run."""
     launches = {n: fn.launches for n, fn in WRAPPERS.items()}
     for n, k in launches.items():
         if k <= 0:
             raise AssertionError(f"{label}: kernel {n} was not launched on the main path")
-    if launches["decode_scan_wave"] != waves:
-        raise AssertionError(
-            f"{label}: {launches['decode_scan_wave']} decode_scan_wave launches, "
-            f"one per non-empty wave is {waves}"
-        )
+    want = {"decode_scan_wave": waves, "encode_scan": trips,
+            "dequantize_inverse_lift_pixels": trips}
+    for n, k in want.items():
+        if launches[n] != k:
+            raise AssertionError(f"{label}: {launches[n]} {n} launches, expected {k}")
     if RT.decode_row.calls:
         raise AssertionError(f"{label}: the plain decode row ran {RT.decode_row.calls} times")
-    print(f"main {label}: launches {json.dumps(launches)} (decode_scan_wave: one per "
+    print(f"main {label}: launches {json.dumps(launches)} (encode_scan one an encode, "
+          f"dequantize_inverse_lift_pixels one a decode, decode_scan_wave one per "
           f"non-empty wave); plain decode rows 0")
     return launches
 
@@ -288,14 +300,15 @@ def read_counts(label: str, waves: int) -> dict:
 
 
 def first_call(label, px, opts):
-    """The first encode -> decode of a shape (program build included)."""
+    """The first encode -> decode of a shape (its program was built in the
+    kernels phase)."""
     t = time.perf_counter()
     blob = frave_tpu_torch.encode(px, opts, device="cuda")
     t_enc = time.perf_counter() - t
     t = time.perf_counter()
     frave_tpu_torch.decode(blob, device="cuda")
     t_dec = time.perf_counter() - t
-    print(f"main {label}: first call (program build included) encode {t_enc:.3f} s "
+    print(f"main {label}: first call (program built before) encode {t_enc:.3f} s "
           f"decode {t_dec:.3f} s")
 
 
@@ -333,9 +346,10 @@ def stage_ms(px, opts, dev) -> dict:
 def grid_shapes(h: int, w: int, c: int, nl: int = 0) -> dict:
     """The shapes the main path gives the kernels at an h x w x c image
     with nl lanes (0: the default count): "lift" (rows, mask rows) of
-    both lifting kernels, "grid" (R, C, NL) of encode_scan, "wave" the
+    forward_lift_quantize, "grid" (R, C, NL) of encode_scan, "wave" the
     largest decode wave (rows, C, NL), and "waves" the number of
-    non-empty waves, one decode_scan_wave launch each."""
+    non-empty waves, one decode_scan_wave launch each (kernel B runs on
+    the image's program itself)."""
     sched = get_schedule(h, w, mode="grid")
     nl = nl or default_num_lanes(sched.num_symbols)
     tiles = get_geometry(h, w).num_tiles
@@ -363,7 +377,9 @@ def run_checks(plan: dict, dev, checks: dict) -> None:
     for name, cases in plan.items():
         for sh, pk, timed, clusters in cases:
             r = kernel_check.check(name, sh, dev, seed=7, timed=timed, kind=pk, clusters=clusters)
-            desc = f"kernel {name} {tuple(sh)}{' ' + pk if pk else ''}"
+            desc = f"kernel {name} {tuple(sh)}{'' if pk is None else f' {pk}'}"
+            if name == "dequantize_inverse_lift_pixels":
+                desc = f"kernel {name} {sh[0]}x{sh[1]}x{sh[2]} program, transform {pk}"
             if name == "decode_scan_wave":
                 desc += f" clusters {list(clusters)} (rule: {r['cluster']})"
             times = ""
@@ -470,15 +486,29 @@ def main() -> int:
         for sh in ((138, 1, 512), (60, 3, 2048), (30, 3, 16384), (4, 3, 32768))
         for k in kernel_check.DECODE_KINDS
     ] + [((40, 1, 512), "valid", True, CLUSTERS)]  # a small one-block wave, timed
-    for label in all_images:
+    for label, px in all_images.items():
         sh = shapes[label]
         plan["forward_lift_quantize"].append((sh["lift"], None, True, (0,)))
-        plan["dequantize_inverse_lift"].append((sh["lift"], None, True, (0,)))
+        # kernel B on the image's own program, every transform id at C = 3
+        for tid in range(4) if px.shape[2] == 3 else (0,):
+            plan["dequantize_inverse_lift_pixels"].append((px.shape, tid, True, (0,)))
         plan["encode_scan"].append((sh["grid"], None, True, (0,)))
         plan["decode_scan_wave"].append((sh["wave"], "garbage", False, CLUSTERS))
         plan["decode_scan_wave"].append((sh["wave"], "valid", True, CLUSTERS))
+    for label, px in all_images.items():
+        t = time.perf_counter()
+        kernel_check.program(*px.shape, dev)
+        print(f"program {label}: CodecProgram.from_host {time.perf_counter() - t:.3f} s "
+              "(kernel B's checks and the main path share it)")
     checks = {}
     run_checks(plan, dev, checks)
+    for label in all_images:
+        R, C, NL = shapes[label]["grid"]
+        sweep = kernel_check.encode_design_ms((R, C, NL), dev)
+        rule = RT.encode_plan(C, NL, CONTEXT_AMOUNT)
+        print(f"kernel encode_scan {(R, C, NL)} device ms by (rows ahead, lanes a block), "
+              f"each bit-equal to the plain version (rule: {rule}): "
+              + json.dumps({f"{a},{t}": round(ms, 4) for (a, t), ms in sweep.items()}))
     floor = exchange_floor(dev)
     torch.cuda.synchronize(dev)
     print(f"phase kernels done at {time.perf_counter() - t_start:.1f} s")
@@ -492,13 +522,15 @@ def main() -> int:
     totals = {n: 0 for n in WRAPPERS}
     zero_counts()
     torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
     reps = 3
     runs = {}
     for label, px in images.items():
         blob, out, te, td = timed_round_trips(label, px, lossless, reps, dev)
         runs[label] = (blob, te, td, out)
     waves = reps * sum(shapes[label]["waves"] for label in images)
-    for n, k in read_counts("lossless 256x256 gray + 768x512 RGB", waves).items():
+    trips = reps * len(images)
+    for n, k in read_counts("lossless 256x256 gray + 768x512 RGB", waves, trips).items():
         totals[n] += k
     peak = torch.cuda.max_memory_allocated(dev)
 
@@ -548,7 +580,8 @@ def main() -> int:
     for q, opts in presets.items():
         preset_runs[q] = timed_round_trips(f"{preset_label} {q.name}", preset_px, opts, reps, dev)
     waves = reps * len(presets) * shapes[preset_label]["waves"]
-    for n, k in read_counts(f"{preset_label} HIGH/MEDIUM/LOW", waves).items():
+    trips = reps * len(presets)
+    for n, k in read_counts(f"{preset_label} HIGH/MEDIUM/LOW", waves, trips).items():
         totals[n] += k
     for q, opts in presets.items():
         label = f"{preset_label} {q.name}"
@@ -569,7 +602,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     big_blob, big_out, big_te, big_td = timed_round_trips(big_label, big_px, lossless, reps, dev)
     big_peak = torch.cuda.max_memory_allocated(dev)
-    for n, k in read_counts(big_label, reps * shapes[big_label]["waves"]).items():
+    for n, k in read_counts(big_label, reps * shapes[big_label]["waves"], reps).items():
         totals[n] += k
     print(f"main {big_label}: lossless; {shapes[big_label]['waves']} decode_scan_wave "
           f"launches per decode ({len(big_blob)} B, "
@@ -595,11 +628,16 @@ def main() -> int:
         print(f"report {label}: decode_scan_wave device ms per decode "
               f"({shapes[label]['waves']} launches): launch rule {rule_ms:.4f}, one block "
               f"{one_ms:.4f}, byte bound {bound_ms:.5f}")
+    for label, px in all_images.items():
+        full, skip = kernel_check.lift_pixels_store_ms(px.shape, dev)
+        print(f"report {label}: dequantize_inverse_lift_pixels device ms {full:.4f}, "
+              f"{skip:.4f} with every pixel store skipped (leaf_pix all -1)")
     floor16 = floor[16] * shapes[big_label]["grid"][0] / EXCHANGE_ROWS
     print(f"report {big_label}: exchange floor of its {shapes[big_label]['grid'][0]} rows at "
           f"16 blocks {floor16:.4f} ms")
     print(f"report peak device memory: {peak} B at 256x256 gray + 768x512 RGB, "
-          f"{big_peak} B at {big_label} (torch.cuda.max_memory_allocated)")
+          f"{big_peak} B at {big_label} (torch.cuda.max_memory_allocated; {resident} B "
+          "was allocated before the first, every image's program among it)")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

@@ -3,8 +3,9 @@
 The port's copy of the host half of frave_tpu/codec/channel_transform.py:
 the per-image choice among the reversible transforms by a
 gradient-entropy proxy. The transforms themselves run on the device
-(pipeline_torch._transform_device); the forward ones here only feed the
-proxy. Every transform keeps each coding plane in [0, 255]:
+(ops/torch_ops.channel_transform and its inverse, which kernel B also
+runs); the forward ones here only feed the proxy. Every transform keeps
+each coding plane in [0, 255]:
   0 NONE              identity
   1 SUBGREEN          R' = (R-G) mod 256, B' = (B-G) mod 256
   2 SUBGREEN_CLAMPED  lossy-mode variant: clamped difference

@@ -31,7 +31,7 @@ from ..fractal.gridplan import GridPlan
 from ..fractal.gridplan_torch import apply_plan
 from ..fractal.lattice import build_wave_plans, get_lattice_grids
 from ..ops import torch_ops as T
-from ..ops.lifting import dequantize_inverse_lift
+from ..ops.lifting import dequantize_inverse_lift_pixels
 from ..ops.rans_torch import decode_scan_wave, decode_tables
 
 _I64 = torch.int64
@@ -218,14 +218,13 @@ def build_grid_decode(prog, geo, waves: List[WaveDev]):
     decode(states, stream, wire_bits, offpk, scales, vparams, wparams,
     qdiv, tid) -> pixels [C, HW] uint8 (all tensors on the program's
     device)."""
-    from .pipeline_torch import _inverse_transform_device
-
     n_slots = prog.n_slots
     C = prog.channels
     nl = prog.nl
     if sum(wd.rows for wd in waves) != prog.rows:
         raise AssertionError("wave rows disagree with the program's row count")
-    depth = geo.depth
+    if geo.depth != 9:
+        raise NotImplementedError(f"depth {geo.depth}: kernel B takes depth 9 only")
     dev = prog.device
     shifts32 = torch.arange(32, device=dev, dtype=_I64)
 
@@ -247,7 +246,8 @@ def build_grid_decode(prog, geo, waves: List[WaveDev]):
 
         x = states
         gptr = torch.zeros((), dtype=_I64, device=dev)
-        qpad = torch.zeros((C, n_slots + 1), dtype=torch.int32, device=dev)
+        # [C, n_slots]: rows 16-byte aligned for kernel B's vector loads
+        qplane = torch.zeros((C, n_slots), dtype=torch.int32, device=dev)
 
         def scan_wave(wd, buckets, preds, x, gptr):
             if wd.rows == 0:
@@ -265,20 +265,20 @@ def build_grid_decode(prog, geo, waves: List[WaveDev]):
         z = torch.zeros((C, w0.kw, 6), dtype=torch.int32, device=dev)
         bk0, pr0 = _wave_contexts(w0, z, vparams, wparams)
         v0, x, gptr = scan_wave(w0, bk0, pr0, x, gptr)
-        qpad[:, w0.wslot] = v0
+        qplane[:, w0.wslot] = v0
         dcA = _to_grid(w0, v0)
 
         planes = _tap_planes(w1, dcA, None)
         bk1, pr1 = _wave_contexts(w1, _pack_tap_vals(w1, planes), vparams, wparams)
         v1, x, gptr = scan_wave(w1, bk1, pr1, x, gptr)
-        qpad[:, w1.wslot] = v1
+        qplane[:, w1.wslot] = v1
         dc = _to_grid(w1, v1, base=dcA)
 
         # wave 2 (root-HF: taps = neighbour DC values)
         planes = _tap_planes(w2, dc, None)
         bk2, pr2 = _wave_contexts(w2, _pack_tap_vals(w2, planes), vparams, wparams)
         v2, x, gptr = scan_wave(w2, bk2, pr2, x, gptr)
-        qpad[:, w2.wslot] = v2
+        qplane[:, w2.wslot] = v2
 
         # HF levels: parent broadcast -> shifts -> rows
         parent = _to_grid(w2, v2)
@@ -287,22 +287,17 @@ def build_grid_decode(prog, geo, waves: List[WaveDev]):
             planes = _tap_planes(wd, pv, parent)
             bk, pr = _wave_contexts(wd, _pack_tap_vals(wd, planes), vparams, wparams)
             vv, x, gptr = scan_wave(wd, bk, pr, x, gptr)
-            qpad[:, wd.wslot] = vv
+            qplane[:, wd.wslot] = vv
             parent = _to_grid(wd, vv)
         if stages is not None:
             stages.mark("decode/waves")
 
-        # dequantize + inverse lifting (kernel B), pixel gather, transform
-        qcoef = qpad[:, :n_slots].reshape(C * geo.num_tiles, geo.nodes_per_tile)
-        leaves = dequantize_inverse_lift(
-            qcoef, prog.node_mask_u8, prog.leaf_mask_u8, qdiv, depth
+        # dequantize + inverse lifting, clamp, inverse transform and the
+        # pixel scatter: kernel B, on the coefficient plane where it lies
+        out = dequantize_inverse_lift_pixels(
+            qplane, prog.node_mask_u8, prog.leaf_mask_u8, qdiv, prog.leaf_pix,
+            prog.pix_inv, tid,
         )
-        if stages is not None:
-            stages.mark("decode/inverse_lift")
-        planes = torch.clamp(leaves.reshape(C, -1)[:, prog.pix_inv], 0, 255)
-        if C == 3:
-            planes = _inverse_transform_device(planes, tid)
-        out = planes.to(torch.uint8)
         if stages is not None:
             stages.mark("decode/pixels")
         return out

@@ -11,8 +11,8 @@ stream compaction -> one packed int32 vector (headers + stream) that the
 host unpacks into a container.
 
 Decode (CodecProgram.decode_exec): table regeneration -> per wave: tap
-planes, contexts, the rANS rows (kernel 3) -> dequantize + inverse lifting
-(kernel B) -> pixel gather and inverse transform.
+planes, contexts, the rANS rows (kernel 3) -> dequantize + inverse
+lifting, clamp, inverse transform and pixel scatter (kernel B).
 
 Everything the JAX program uploads once per shape (geometry gathers,
 masks, schedule tensors, Laplace grid, wave plans) is built from the same
@@ -44,7 +44,7 @@ from ..fractal.schedule import (
 from ..images import AnsContextTables, ChannelData, ColorSpace, CompressedImage, RasterImage
 from ..ops import torch_ops as T
 from ..ops.lifting import forward_lift_quantize
-from ..ops.rans_torch import encode_scan, pack_u16_pairs, stream_compact_grid
+from ..ops.rans_torch import encode_scan, pack_u16_pairs, row_map, stream_compact_grid
 from .channel_transform import choose_transform
 from .options import EncoderOptions, quantization_matrix
 
@@ -106,50 +106,18 @@ def _u32_to_i32(t: torch.Tensor) -> torch.Tensor:
     return (t - ((t >> 31) & 1) * (1 << 32)).to(_I32)
 
 
-def _sgn8(x):
-    """Mod-256 value -> signed representative in [-128, 127]."""
-    return ((x + 128) & 255) - 128
-
-
-def _transform_device(planes: torch.Tensor, tid: int) -> torch.Tensor:
-    """[3, HW] int32 raw RGB -> coding planes of transform `tid` (exact
-    integer twins of codec/channel_transform.py)."""
-    r, g, b = planes[0], planes[1], planes[2]
-    if tid == 0:
-        return planes
-    if tid == 1:
-        return torch.stack([(r - g) & 255, g, (b - g) & 255])
-    if tid == 2:
-        return torch.stack(
-            [torch.clamp(r - g + 128, 0, 255), g, torch.clamp(b - g + 128, 0, 255)]
-        )
-    if tid == 3:
-        co = (r - b) & 255
-        t = (b + (_sgn8(co) >> 1)) & 255
-        cg = (g - t) & 255
-        y = (t + (_sgn8(cg) >> 1)) & 255
-        return torch.stack([y, co, cg])
-    raise ValueError(f"unknown channel transform id {tid}")
-
-
-def _inverse_transform_device(planes: torch.Tensor, tid: int) -> torch.Tensor:
-    """Inverse of _transform_device on [3, HW] int32 coding planes."""
-    a, g, c = planes[0], planes[1], planes[2]
-    if tid == 0:
-        return planes
-    if tid == 1:
-        return torch.stack([(a + g) & 255, g, (c + g) & 255])
-    if tid == 2:
-        return torch.stack(
-            [torch.clamp(a + g - 128, 0, 255), g, torch.clamp(c + g - 128, 0, 255)]
-        )
-    if tid == 3:
-        t = (a - (_sgn8(c) >> 1)) & 255  # y, co, cg = a, g, c
-        gg = (c + t) & 255
-        b = (t - (_sgn8(g) >> 1)) & 255
-        r = (g + b) & 255
-        return torch.stack([r, gg, b])
-    raise ValueError(f"unknown channel transform id {tid}")
+def pixel_inverse(leaf_pix: np.ndarray, hw: int) -> np.ndarray:
+    """The leaf of each of the hw pixels [hw] int64, from the pixel of
+    each leaf (-1 out of bounds). Raises unless the in-bounds leaves cover
+    every pixel exactly once: only then does kernel B's scatter through
+    leaf_pix equal the reference's gather through this inverse."""
+    inb = leaf_pix >= 0
+    counts = np.bincount(leaf_pix[inb], minlength=hw)
+    if counts.shape[0] != hw or not (counts == 1).all():
+        raise AssertionError("the in-bounds leaves do not cover each pixel exactly once")
+    inv = np.zeros(hw, dtype=np.int64)
+    inv[leaf_pix[inb]] = np.nonzero(inb)[0]
+    return inv
 
 
 def _gram_solve(G: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -221,10 +189,10 @@ class CodecProgram:
     def from_host(cls, height: int, width: int, nl: int, channels: int, device):
         """Build every device constant from the numpy structures that
         pipeline_jax.CodecProgram uploads: the pixel gather and masks, the
-        schedule tensors, pix_inv, the Laplace grid, the grid-row layout
-        and the wave plans. Shapes with no dense lattice maps (under ~32 px
-        a side) raise NotImplementedError: their step-tensor decoder is
-        not ported."""
+        schedule tensors, the pixel map (leaf_pix and pix_inv), the
+        Laplace grid, the grid-row map and the wave plans. Shapes with no
+        dense lattice maps (under ~32 px a side) raise
+        NotImplementedError: their step-tensor decoder is not ported."""
         from .grid_decode import build_grid_decode, build_grid_encode, get_wave_devs
 
         self = cls()
@@ -233,7 +201,7 @@ class CodecProgram:
         C, h, w = channels, height, width
         geo = get_geometry(h, w, depth)
         sched = get_schedule(h, w, depth, mode="grid")
-        _, _, R, rows_per_wave = grid_row_lane(sched, nl)
+        _, _, R, _ = grid_row_lane(sched, nl)
         Tn, N = geo.num_tiles, geo.nodes_per_tile
         n_slots = Tn * N
         K = sched.num_symbols
@@ -279,24 +247,19 @@ class CodecProgram:
                 raise AssertionError(f"predictor group {g} not contiguous")
             self.group_ranges.append((lo, hi))
         # grid layout: every wave's symbols are contiguous in schedule
-        # order and fill rows of NL lanes back to back (grid_row_lane)
-        grid_k = np.full(R * nl, -1, dtype=np.int64)
-        pos = k0 = 0
-        for ws, rw in zip(sched.wave_sizes.tolist(), rows_per_wave.tolist()):
-            grid_k[pos : pos + ws] = np.arange(k0, k0 + ws)
-            pos += int(rw) * nl
-            k0 += ws
-        self.grid_k = put(np.maximum(grid_k, 0))
-        self.grid_valid = put(grid_k >= 0, torch.bool)  # [R * NL]
-        self.valid_grid = (
-            self.grid_valid.reshape(R, 1, nl).expand(R, C, nl).to(torch.uint8).contiguous()
-        )
-        # pixel assembly as a gather: pixels[p] = leaves[pix_inv[p]]
+        # order and fill rows of NL lanes back to back (grid_row_lane);
+        # kernel C reads the symbols in schedule order through this map
+        row_k0, row_len = row_map(sched.wave_sizes, nl)
+        if row_k0.shape[0] != R or int(row_len.sum()) != K:
+            raise AssertionError("row map disagrees with grid_row_lane")
+        self.row_k0 = put(row_k0, _I32)
+        self.row_len = put(row_len, _I32)
+        # pixel assembly: kernel B scatters leaf i to pixel leaf_pix[i]
+        # (-1 out of bounds); the plain version gathers pixel p from leaf
+        # pix_inv[p]
         pgf = pg.reshape(-1)
-        inb = pgf >= 0
-        pix_inv = np.zeros(h * w, dtype=np.int64)
-        pix_inv[pgf[inb]] = np.nonzero(inb)[0]
-        self.pix_inv = put(pix_inv)
+        self.leaf_pix = put(pgf, _I32)
+        self.pix_inv = put(pixel_inverse(pgf, h * w))
         self.node_mask = put(geo.coef_mask, torch.bool)
         self.node_mask_u8 = put(geo.coef_mask, torch.uint8)
 
@@ -313,12 +276,6 @@ class CodecProgram:
         if genc == "force" or (genc == "1" and K >= GRID_ENC_MIN_K):
             self.grid_enc = build_grid_encode(self, geo, sched, waves)
         return self
-
-    def _grid(self, a: torch.Tensor) -> torch.Tensor:
-        """[C, K] schedule-order values -> the [R, C, NL] lane grid (0 in
-        the padding slots)."""
-        g = torch.where(self.grid_valid[None], a[:, self.grid_k], torch.zeros_like(a[:, :1]))
-        return g.reshape(self.channels, self.rows, self.nl).permute(1, 0, 2).to(_I32).contiguous()
 
     def _overrides(self, overrides):
         """EncoderOptions.prediction_overrides(C) -> device tensors
@@ -364,7 +321,7 @@ class CodecProgram:
             stages.start()
         planes = pixels.reshape(-1, C).T.to(_I32)
         if C == 3:
-            planes = _transform_device(planes, tid)
+            planes = T.channel_transform(planes, tid)
         leaves = torch.where(
             self.leaf_mask[None], planes[:, self.leaf_safe], torch.zeros((), dtype=_I32, device=dev)
         ).reshape(C * Tn, N)
@@ -382,6 +339,9 @@ class CodecProgram:
         if stages is not None:
             stages.mark("encode/stats")
 
+        # schedule order, as kernel C reads them
+        buckets = buckets.to(_I32).contiguous()
+        symbols = symbols.to(_I32).contiguous()
         # exact histogram of (channel, bucket, symbol)
         chan = torch.arange(C, device=dev, dtype=_I64)[:, None]
         ids = (chan * CONTEXT_AMOUNT + buckets.to(_I64)) * ALPHABET_SIZE + torch.clamp(
@@ -403,8 +363,8 @@ class CodecProgram:
             stages.mark("encode/tables")
 
         states, words, flags = encode_scan(
-            self._grid(symbols), self._grid(buckets), self.valid_grid,
-            freqs.to(_I32), cdfs.to(_I32), bits.to(_I32),
+            symbols, buckets, self.row_k0, self.row_len,
+            freqs.to(_I32), cdfs.to(_I32), bits.to(_I32), self.nl,
         )
         if stages is not None:
             stages.mark("encode/rans")

@@ -28,11 +28,11 @@ KERNELS = {
         "frave_tpu_torch/csrc/lifting.cu",
         "frave_tpu/ops/pallas_lifting.py:120",
     ),
-    "dequantize_inverse_lift": (
-        L.dequantize_inverse_lift,
-        L.dequantize_inverse_lift_plain,
+    "dequantize_inverse_lift_pixels": (
+        L.dequantize_inverse_lift_pixels,
+        L.dequantize_inverse_lift_pixels_plain,
         "frave_tpu_torch/csrc/lifting.cu",
-        "frave_tpu/ops/pallas_lifting.py:148",
+        "frave_tpu/ops/pallas_lifting.py:148 + frave_tpu/codec/grid_decode.py:511-514",
     ),
     "encode_scan": (
         RT.encode_scan,
@@ -51,8 +51,12 @@ KERNELS = {
 HBM_BYTES_PER_S = 3.35e12
 # cluster sizes kernel 3 can be forced to
 CLUSTERS = (1, 2, 4, 8, 16)
-# problem kinds of decode_scan_wave (the other kernels have one kind, None)
+# problem kinds of decode_scan_wave (kernel B's kind is its transform id;
+# the other kernels have one kind, None)
 DECODE_KINDS = ("valid", "garbage")
+# kernel C's design points: rows loaded ahead, lanes a block
+ENCODE_AHEAD = (4, 8, 16)
+ENCODE_THREADS = (32, 64, 128, 256)
 
 
 def _t(a):
@@ -67,32 +71,56 @@ def lifting_problem(rng, rows: int, mask_rows: int, depth: int = 9):
     node_mask = rng.random((mask_rows, n)) > 0.05
     leaves = rng.integers(0, 256, size=(rows, n))
     leaves = np.where(np.tile(leaf_mask, (rows // mask_rows, 1)), leaves, 0)
-    qdiv = np.ones(n, np.int32)
-    qdiv[n // 2 :] = 3
-    qdiv[n // 4 : n // 2] = 2
     return (
         _t(leaves.astype(np.int32)), _t(leaf_mask.astype(np.uint8)),
-        _t(node_mask.astype(np.uint8)), _t(qdiv),
+        _t(node_mask.astype(np.uint8)), _lossy_qdiv(n),
     )
 
 
-def rans_problem(rng, R: int, C: int, NL: int):
-    """A seeded encode_scan problem (sym, bkt, valid, freqs, cdfs, bits)
-    on the CPU whose tables give every drawn symbol a nonzero frequency;
-    the last row is partly filled, as the grid's last rows are."""
-    sym = np.minimum(rng.geometric(0.08, size=(R, C, NL)) - 1, ALPHABET_SIZE - 1)
-    bkt = rng.integers(0, CONTEXT_AMOUNT, size=(R, C, NL))
-    valid = np.ones((R, C, NL), dtype=bool)
-    valid[-1, :, NL - NL // 3 :] = False
-    ids = (np.arange(C)[None, :, None] * CONTEXT_AMOUNT + bkt) * ALPHABET_SIZE + sym
-    hist = np.bincount(ids[valid], minlength=C * CONTEXT_AMOUNT * ALPHABET_SIZE)
+def _lossy_qdiv(n: int) -> torch.Tensor:
+    """qdiv [n] int32: 1 on the top quarter of the haar indices, then 2,
+    then 3 on the finest level."""
+    qdiv = np.ones(n, np.int32)
+    qdiv[n // 2 :] = 3
+    qdiv[n // 4 : n // 2] = 2
+    return _t(qdiv)
+
+
+def draw_wave_sizes(rng, R: int, NL: int) -> list:
+    """Symbols per wave of a few seeded waves (one of them empty) that fill
+    R rows of NL lanes, each wave's last row partly filled, as the grid's
+    are."""
+    cuts = np.sort(rng.choice(np.arange(1, R), size=min(R - 1, max(1, R // 20)), replace=False))
+    rows = np.diff(np.concatenate([[0], cuts, [R]]))
+    sizes = [int((rw - 1) * NL + (rng.integers(1, NL) if NL > 1 else 1)) for rw in rows]
+    sizes.insert(len(sizes) // 2, 0)
+    return sizes
+
+
+def schedule_problem(rng, wave_sizes, C: int, NL: int):
+    """encode_scan's operands (symbols, buckets, row_k0, row_len, freqs,
+    cdfs, bits) on the CPU for waves of these sizes: seeded schedule-order
+    [C, K] symbols and buckets, the row map, and tables that give every
+    drawn symbol a nonzero frequency."""
+    row_k0, row_len = RT.row_map(wave_sizes, NL)
+    K = int(row_len.sum())
+    sym = np.minimum(rng.geometric(0.08, size=(C, K)) - 1, ALPHABET_SIZE - 1)
+    bkt = rng.integers(0, CONTEXT_AMOUNT, size=(C, K))
+    ids = (np.arange(C)[:, None] * CONTEXT_AMOUNT + bkt) * ALPHABET_SIZE + sym
+    hist = np.bincount(ids.reshape(-1), minlength=C * CONTEXT_AMOUNT * ALPHABET_SIZE)
     hist = _t(hist.reshape(C, CONTEXT_AMOUNT, ALPHABET_SIZE))
     bits, freqs, cdfs, _ = finalize_contexts_device(hist, _t(_LAPLACE_GRID_ROWS))
     i32 = torch.int32
     return (
-        _t(sym.astype(np.int32)), _t(bkt.astype(np.int32)), _t(valid.astype(np.uint8)),
+        _t(sym.astype(np.int32)), _t(bkt.astype(np.int32)), _t(row_k0), _t(row_len),
         freqs.to(i32), cdfs.to(i32), bits.to(i32),
     )
+
+
+def rans_problem(rng, R: int, C: int, NL: int):
+    """schedule_problem on draw_wave_sizes(rng, R, NL): R rows of NL
+    lanes."""
+    return schedule_problem(rng, draw_wave_sizes(rng, R, NL), C, NL)
 
 
 def random_staircases(rng, C: int):
@@ -131,43 +159,76 @@ def garbage_wave(rng, R: int, C: int, NL: int):
 
 def decode_problem(rng, R: int, C: int, NL: int, kind: str):
     """decode_scan_wave's operands (x0, gptr0, buckets, active, stream,
-    tabs) on the CPU. "valid": a rans_problem grid encoded by the plain
-    encode_scan and compacted, so the wave decodes back to its symbols and
-    to states 2^16; "garbage": garbage_wave."""
+    tabs) on the CPU. "valid": a rans_problem encoded by the plain
+    encode_scan and compacted, its buckets and slot validity laid out on
+    the lane grid (schedule_grid), so the wave decodes back to its symbols
+    and to states 2^16; "garbage": garbage_wave."""
     i32 = torch.int32
     if kind == "garbage":
         x0, bkt, act, stream, cdfs, bits = (_t(a) for a in garbage_wave(rng, R, C, NL))
     elif kind == "valid":
-        sym, bkt, valid, freqs, cdfs, bits = rans_problem(rng, R, C, NL)
-        x0, words, flags = RT.encode_scan_plain(sym, bkt, valid, freqs, cdfs, bits)
+        sym, bkt_k, row_k0, row_len, freqs, cdfs, bits = rans_problem(rng, R, C, NL)
+        x0, words, flags = RT.encode_scan_plain(
+            sym, bkt_k, row_k0, row_len, freqs, cdfs, bits, NL
+        )
         kc = R * C * NL
         packed, total = RT.stream_compact_grid(words, flags, kc)
         stream = torch.zeros(int(total) + C * NL, dtype=i32)
         stream[: int(total)] = packed[: int(total)].to(i32) & 0xFFFF
-        act = valid[:, 0].to(torch.bool)  # lane activity is channel-independent
+        bkt, act = RT.schedule_grid(bkt_k, row_k0, row_len, NL)
     else:
         raise ValueError(f"unknown decode problem kind {kind!r}")
     gptr0 = torch.zeros((), dtype=torch.int64)
     return x0, gptr0, bkt, act, stream, RT.decode_tables(cdfs, bits)
 
 
-def problem(name: str, rng, shape, kind=None):
+def lift_pixels_problem(rng, prog, tid: int):
+    """dequantize_inverse_lift_pixels' operands from a CodecProgram (its
+    masks and both directions of its pixel map) on the program's device:
+    the coefficient plane [C, T*512] of seeded leaves in [0, 255] through
+    the plain forward lifting and a lossy qdiv, with 1% of coefficients
+    pushed by up to +-40 so the clamp binds. Returns (args, (tid,))."""
+    C, Tn, dev = prog.channels, prog.num_tiles, prog.device
+    n = Tn * 512
+    lm = prog.leaf_mask_u8
+    qdiv = _lossy_qdiv(512).to(dev)
+    leaves = _t(rng.integers(0, 256, size=(C * Tn, 512)).astype(np.int32)).to(dev)
+    leaves = torch.where(lm.to(torch.bool).repeat(C, 1), leaves, 0)
+    push = rng.integers(-40, 41, size=(C, n)) * (rng.random((C, n)) < 0.01)
+    qplane = L.forward_lift_quantize_plain(leaves, lm, qdiv, 9).reshape(C, n)
+    qplane += _t(push.astype(np.int32)).to(dev)
+    args = (qplane, prog.node_mask_u8, lm, qdiv, prog.leaf_pix, prog.pix_inv)
+    return args, (tid,)
+
+
+def program(h: int, w: int, c: int, device):
+    """The cached CodecProgram of an h x w x c image at its default lane
+    count (the main path's)."""
+    from .codec.pipeline_torch import get_program
+    from .fractal.schedule import default_num_lanes, get_schedule
+
+    nl = default_num_lanes(get_schedule(h, w, mode="grid").num_symbols)
+    return get_program(h, w, nl, c, device)
+
+
+def problem(name: str, rng, shape, kind=None, device="cpu"):
     """(positional args, extra args) for kernel `name` at `shape`:
-    lifting (rows, mask_rows), encode_scan and decode_scan_wave
-    (R, C, NL); `kind` picks decode_scan_wave's problem (DECODE_KINDS)."""
+    forward_lift_quantize (rows, mask_rows); encode_scan and
+    decode_scan_wave (R, C, NL), on the CPU; dequantize_inverse_lift_pixels
+    (h, w, c) on `device`, the program of that image. `kind` picks
+    decode_scan_wave's problem (DECODE_KINDS) and kernel B's transform id
+    (0-3)."""
     if name == "decode_scan_wave":
         return decode_problem(rng, *shape, kind), ()
+    if name == "dequantize_inverse_lift_pixels":
+        return lift_pixels_problem(rng, program(*shape, device), kind or 0)
     if kind is not None:
         raise ValueError(f"{name} has no problem kinds")
     if name == "forward_lift_quantize":
         leaves, lm, _, qdiv = lifting_problem(rng, *shape)
         return (leaves, lm, qdiv), (9,)
-    if name == "dequantize_inverse_lift":
-        leaves, lm, nm, qdiv = lifting_problem(rng, *shape)
-        qcoef = L.forward_lift_quantize_plain(leaves, lm, qdiv, 9)
-        return (qcoef, nm, lm, qdiv), (9,)
     if name == "encode_scan":
-        return rans_problem(rng, *shape), ()
+        return rans_problem(rng, *shape), (shape[2],)
     raise KeyError(name)
 
 
@@ -244,7 +305,13 @@ def _nbytes(a) -> int:
 def bytes_moved(name: str, args, out) -> int:
     """The bytes kernel `name` must move on these operands: every input
     read once and every output written once; of decode_scan_wave's stream,
-    only the words the wave consumes (the rest is padding it never reads)."""
+    only the words the wave consumes (the rest is padding it never reads);
+    of kernel B's, the T*512 columns of each coefficient row and not
+    pix_inv, which only the plain version reads."""
+    if name == "dequantize_inverse_lift_pixels":
+        qplane, nm, lm, qdiv, leaf_pix, _ = args
+        used = qplane.shape[0] * nm.numel() * qplane.element_size()
+        return used + _nbytes((nm, lm, qdiv, leaf_pix)) + _nbytes(out)
     if name != "decode_scan_wave":
         return _nbytes(args) + _nbytes(out)
     x, gptr, buckets, active, stream, tabs = args
@@ -266,7 +333,7 @@ def check(name: str, shape, device, seed: int = 0, timed: bool = False,
     timed; a timed decode_scan_wave also gives "cluster_ms" {cluster:
     device ms})."""
     wrapper, plain, _, _ = KERNELS[name]
-    args, extra = problem(name, np.random.default_rng(seed), shape, kind)
+    args, extra = problem(name, np.random.default_rng(seed), shape, kind, device)
     args = tuple(_to(a, device) for a in args)
     decode = name == "decode_scan_wave"
     if not decode and tuple(clusters) != (0,):
@@ -296,3 +363,38 @@ def check(name: str, shape, device, seed: int = 0, timed: bool = False,
                 for size in clusters
             }
     return out
+
+
+def encode_design_ms(shape, device, seed: int = 7) -> dict:
+    """Kernel C at each design point (ENCODE_AHEAD x ENCODE_THREADS) on one
+    seeded problem at `shape` (R, C, NL): each must be bit-equal to the
+    plain version (raises otherwise). Returns {(ahead, threads): device
+    ms}."""
+    args, extra = problem("encode_scan", np.random.default_rng(seed), shape)
+    args = tuple(a.to(device) for a in args)
+    ref = RT.encode_scan_plain(*args, *extra)
+    out = {}
+    for ahead in ENCODE_AHEAD:
+        for threads in ENCODE_THREADS:
+            def call():
+                return RT.encode_scan(*args, *extra, ahead=ahead, threads=threads)
+
+            err = _max_abs_err(call(), ref)
+            if err:
+                raise AssertionError(f"encode_scan {tuple(shape)} ahead {ahead} threads "
+                                     f"{threads}: disagrees with its plain version ({err})")
+            out[(ahead, threads)] = device_ms(call)
+    return out
+
+
+def lift_pixels_store_ms(shape, device, seed: int = 7) -> tuple:
+    """Kernel B's pixel scatter in isolation, on the program of the h x w
+    x c image `shape`: (device ms of the kernel, device ms with every
+    leaf out of bounds, leaf_pix all -1, so that it does all its work but
+    the byte stores)."""
+    args, extra = problem("dequantize_inverse_lift_pixels", np.random.default_rng(seed),
+                          shape, 0, device)
+    skip = args[:4] + (torch.full_like(args[4], -1),) + args[5:]
+    return tuple(device_ms(lambda a=a: L.dequantize_inverse_lift_pixels(*a, *extra))
+                 for a in (args, skip))
+

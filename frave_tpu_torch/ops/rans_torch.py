@@ -6,9 +6,11 @@ scale bits <= 14, so each symbol moves at most one word either way. The
 u32 states are carried in int64 (torch has no full uint32 arithmetic)
 and masked back to 32 bits where a wrap could occur.
 
-  * encode_scan — the reverse scan over the [R, C, NL] symbol grid:
-    kernel C (csrc/rans_encode.cu frave_rans_encode) on the card, the
-    plain row loop encode_scan_plain on the CPU.
+  * encode_scan — the reverse scan over the [R, C, NL] lane grid of a
+    row map (row_map), reading the symbols in schedule order: kernel C
+    (csrc/rans_encode.cu frave_rans_encode) on the card, the plain row
+    loop encode_scan_plain (over the grid schedule_grid builds) on the
+    CPU.
   * stream_compact_grid — grid mode's decode order IS the flat
     [R, C, NL] order, so compaction is an exclusive prefix sum over the
     emit flags plus one scatter.
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..entropy.tables import ALPHABET_SIZE, MAX_FREQ_BITS_CAP
@@ -47,15 +50,48 @@ def _check_grid(name, t, shape, dtypes):
         raise ValueError(f"{name} must be contiguous")
 
 
-def encode_scan_plain(sym_grid, bkt_grid, valid_grid, freqs, cdfs, scale_bits):
-    """The reverse-scan rANS encode as a row loop over [C, NL] tensors.
-    Returns (states [C, NL] int64 in [0, 2^32), words [R, C, NL] int16
-    (u16 bits), flags [R, C, NL] bool)."""
+def row_map(wave_sizes, nl: int):
+    """Grid mode's row map for lane count nl: each wave's symbols fill
+    rows of nl lanes back to back in schedule order, so row r holds
+    schedule positions row_k0[r] .. row_k0[r] + row_len[r] - 1 in lanes
+    0 .. row_len[r] - 1 (schedule.grid_row_lane; empty waves take no
+    row). wave_sizes: symbols per wave. Returns (row_k0, row_len) [R]
+    int32 numpy arrays."""
+    k0s, lens = [], []
+    k0 = 0
+    for ws in (int(w) for w in wave_sizes):
+        for i in range(0, ws, nl):
+            k0s.append(k0 + i)
+            lens.append(min(nl, ws - i))
+        k0 += ws
+    return np.asarray(k0s, dtype=np.int32), np.asarray(lens, dtype=np.int32)
+
+
+def schedule_grid(a, row_k0, row_len, nl: int):
+    """[C, K] schedule-order values -> the [R, C, NL] lane grid of the
+    row map (0 in the padding slots), and the [R, NL] bool validity of
+    its slots."""
+    C = a.shape[0]
+    dev = a.device
+    lane = torch.arange(nl, device=dev, dtype=torch.int64)
+    valid = lane[None, :] < row_len.to(torch.int64)[:, None]
+    k = torch.where(valid, row_k0.to(torch.int64)[:, None] + lane[None, :], 0)
+    g = torch.where(valid[None], a[:, k], torch.zeros((), dtype=a.dtype, device=dev))
+    return g.permute(1, 0, 2).contiguous(), valid
+
+
+def encode_scan_plain(symbols, buckets, row_k0, row_len, freqs, cdfs, scale_bits, nl):
+    """encode_scan as a row loop over [C, NL] tensors of the lane grid
+    that schedule_grid builds. Returns (states [C, NL] int64 in
+    [0, 2^32), words [R, C, NL] int16 (u16 bits), flags [R, C, NL]
+    bool)."""
+    sym_grid, valid_grid = schedule_grid(symbols, row_k0, row_len, nl)
+    bkt_grid, _ = schedule_grid(buckets, row_k0, row_len, nl)
     R, C, NL = sym_grid.shape
     ca = freqs.shape[-2]
     dev = sym_grid.device
-    f = freqs.to(torch.int64).reshape(-1)
-    cd = cdfs.to(torch.int64).reshape(-1)
+    f = freqs.to(torch.int64).reshape(-1) & 0xFFFF
+    cd = cdfs.to(torch.int64).reshape(-1) & 0xFFFF
     b = scale_bits.to(torch.int64).reshape(-1)
     chan = torch.arange(C, device=dev, dtype=torch.int64)[:, None]
     x = torch.full((C, NL), RANS_L, dtype=torch.int64, device=dev)
@@ -63,7 +99,7 @@ def encode_scan_plain(sym_grid, bkt_grid, valid_grid, freqs, cdfs, scale_bits):
     flags = torch.empty((R, C, NL), dtype=torch.bool, device=dev)
     one = torch.ones((), dtype=torch.int64, device=dev)
     for r in range(R - 1, -1, -1):
-        v = valid_grid[r].to(torch.bool)
+        v = valid_grid[r][None, :]
         s = torch.clamp(sym_grid[r].to(torch.int64), 0, ALPHABET_SIZE - 1)
         k = torch.clamp(bkt_grid[r].to(torch.int64), 0, ca - 1)
         ctx = chan * ca + k
@@ -82,48 +118,85 @@ def encode_scan_plain(sym_grid, bkt_grid, valid_grid, freqs, cdfs, scale_bits):
     return x, words, flags
 
 
-def encode_scan(sym_grid, bkt_grid, valid_grid, freqs, cdfs, scale_bits):
-    """Reverse-scan rANS encode (replaces rans_jax.encode_scan).
+def _check_aligned(name, t):
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
 
-    sym_grid / bkt_grid [R, C, NL] int32 (zig-zag symbols / context
-    buckets in schedule order), valid_grid [R, C, NL] uint8/bool,
-    freqs / cdfs [C, CA, 1024] int32, scale_bits [C, CA] int32.
-    Returns (final states [C, NL] int64 in [0, 2^32), words [R, C, NL]
-    int16 holding the u16 words, flags [R, C, NL] bool): words[r] is
-    valid where flags[r]; decode consumes flagged words in increasing r."""
-    R, C, NL = sym_grid.shape
+
+def encode_plan(channels: int, lanes: int, contexts: int):
+    """Kernel C's launch rule on the current CUDA device: (rows loaded
+    ahead, lanes a block) for a grid of channels x lanes
+    (csrc/rans_encode.cu plan)."""
+    lib = _build.load_library()
+    ahead, threads = ctypes.c_int(0), ctypes.c_int(0)
+    code = lib.frave_rans_encode_plan(
+        channels, lanes, contexts, ctypes.byref(ahead), ctypes.byref(threads)
+    )
+    _build.check(code, "frave_rans_encode_plan")
+    return ahead.value, threads.value
+
+
+def encode_scan(symbols, buckets, row_k0, row_len, freqs, cdfs, scale_bits, nl: int,
+                ahead: int = 0, threads: int = 0):
+    """Reverse-scan rANS encode (replaces rans_jax.encode_scan) over the
+    lane grid of a row map, read in schedule order.
+
+    symbols / buckets [C, K] int32 (zig-zag symbols / context buckets in
+    schedule order); row_k0 / row_len [R] int32 (row_map: row r holds
+    positions row_k0[r] + l in lanes l < row_len[r] <= nl, the rest of
+    its nl lanes are padding); freqs / cdfs [C, CA, 1024] int32, read
+    mod 2^16 (the coder's are at most 2^14); scale_bits [C, CA] int32.
+    The scan runs rows R-1 .. 0; a padding slot emits nothing and keeps
+    the state. Returns (final states [C, NL] int64 in [0, 2^32), words
+    [R, C, NL] int16 holding the u16 words, flags [R, C, NL] bool):
+    words[r] is valid where flags[r]; decode consumes flagged words in
+    increasing r. Kernel C (csrc/rans_encode.cu frave_rans_encode) on
+    the card, encode_scan_plain on the CPU. `ahead` (rows loaded ahead:
+    4, 8 or 16) and `threads` (lanes a block), given together, force the
+    kernel's design point for the sweeps; 0 and 0 take its launch rule
+    (encode_plan)."""
+    C, K = symbols.shape
+    R = row_k0.shape[0]
     ca = freqs.shape[-2]
     i32 = (torch.int32,)
-    _check_grid("sym_grid", sym_grid, (R, C, NL), i32)
-    _check_grid("bkt_grid", bkt_grid, (R, C, NL), i32)
-    _check_grid("valid_grid", valid_grid, (R, C, NL), (torch.uint8, torch.bool))
+    _check_grid("symbols", symbols, (C, K), i32)
+    _check_grid("buckets", buckets, (C, K), i32)
+    _check_grid("row_k0", row_k0, (R,), i32)
+    _check_grid("row_len", row_len, (R,), i32)
     _check_grid("freqs", freqs, (C, ca, ALPHABET_SIZE), i32)
     _check_grid("cdfs", cdfs, (C, ca, ALPHABET_SIZE), i32)
     _check_grid("scale_bits", scale_bits, (C, ca), i32)
-    dev = sym_grid.device
+    if not 1 <= nl < 1 << 31:
+        raise ValueError(f"nl must be positive, got {nl}")
+    if (ahead == 0) != (threads == 0):
+        raise ValueError("ahead and threads force a design point together")
+    dev = symbols.device
     if dev.type == "cpu":
         return encode_scan_plain(
-            sym_grid, bkt_grid, valid_grid, freqs, cdfs, scale_bits
+            symbols, buckets, row_k0, row_len, freqs, cdfs, scale_bits, nl
         )
     if dev.type != "cuda":
         raise RuntimeError(f"no kernel for device {dev}")
-    ops = (bkt_grid, valid_grid, freqs, cdfs, scale_bits)
+    ops = (buckets, row_k0, row_len, freqs, cdfs, scale_bits)
     if any(t.device != dev for t in ops):
         raise ValueError(f"all operands must lie on {dev}")
+    _check_aligned("freqs", freqs)
+    _check_aligned("cdfs", cdfs)
+    if K == 0:  # the kernel reads position 0 of every padding slot
+        symbols = buckets = torch.zeros((C, 1), dtype=torch.int32, device=dev)
     lib = _build.load_library()
-    valid = valid_grid.view(torch.uint8) if valid_grid.dtype == torch.bool else valid_grid
-    words = torch.empty((R, C, NL), dtype=torch.int16, device=dev)
-    flags = torch.empty((R, C, NL), dtype=torch.uint8, device=dev)
-    states = torch.empty((C, NL), dtype=torch.int32, device=dev)
+    words = torch.empty((R, C, nl), dtype=torch.int16, device=dev)
+    flags = torch.empty((R, C, nl), dtype=torch.uint8, device=dev)
+    states = torch.empty((C, nl), dtype=torch.int64, device=dev)
     code = lib.frave_rans_encode(
-        sym_grid.data_ptr(), bkt_grid.data_ptr(), valid.data_ptr(),
+        symbols.data_ptr(), buckets.data_ptr(), row_k0.data_ptr(), row_len.data_ptr(),
         freqs.data_ptr(), cdfs.data_ptr(), scale_bits.data_ptr(),
         words.data_ptr(), flags.data_ptr(), states.data_ptr(),
-        R, C, NL, ca, _build.current_stream(dev),
+        R, C, nl, ca, symbols.shape[1], ahead, threads, _build.current_stream(dev),
     )
     _build.check(code, "frave_rans_encode")
     encode_scan.launches += 1
-    return states.to(torch.int64) & _U32, words, flags.view(torch.bool)
+    return states, words, flags.view(torch.bool)
 
 
 encode_scan.launches = 0

@@ -227,3 +227,49 @@ def unpack_signed(k: torch.Tensor) -> torch.Tensor:
         torch.div(k, 2, rounding_mode="floor"),
         -torch.div(k + 1, 2, rounding_mode="floor"),
     )
+
+
+def _sgn8(x):
+    """Mod-256 value -> signed representative in [-128, 127]."""
+    return ((x + 128) & 255) - 128
+
+
+def channel_transform(planes: torch.Tensor, tid: int) -> torch.Tensor:
+    """[3, HW] int32 raw RGB -> coding planes of transform `tid` (exact
+    integer twins of codec/channel_transform.py)."""
+    r, g, b = planes[0], planes[1], planes[2]
+    if tid == 0:
+        return planes
+    if tid == 1:
+        return torch.stack([(r - g) & 255, g, (b - g) & 255])
+    if tid == 2:
+        return torch.stack(
+            [torch.clamp(r - g + 128, 0, 255), g, torch.clamp(b - g + 128, 0, 255)]
+        )
+    if tid == 3:
+        co = (r - b) & 255
+        t = (b + (_sgn8(co) >> 1)) & 255
+        cg = (g - t) & 255
+        y = (t + (_sgn8(cg) >> 1)) & 255
+        return torch.stack([y, co, cg])
+    raise ValueError(f"unknown channel transform id {tid}")
+
+
+def inverse_channel_transform(planes: torch.Tensor, tid: int) -> torch.Tensor:
+    """Inverse of channel_transform on [3, HW] int32 coding planes."""
+    a, g, c = planes[0], planes[1], planes[2]
+    if tid == 0:
+        return planes
+    if tid == 1:
+        return torch.stack([(a + g) & 255, g, (c + g) & 255])
+    if tid == 2:
+        return torch.stack(
+            [torch.clamp(a + g - 128, 0, 255), g, torch.clamp(c + g - 128, 0, 255)]
+        )
+    if tid == 3:
+        t = (a - (_sgn8(c) >> 1)) & 255  # y, co, cg = a, g, c
+        gg = (c + t) & 255
+        b = (t - (_sgn8(g) >> 1)) & 255
+        r = (g + b) & 255
+        return torch.stack([r, gg, b])
+    raise ValueError(f"unknown channel transform id {tid}")

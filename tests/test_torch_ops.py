@@ -3,7 +3,10 @@
 The same seeded numpy inputs go through jax_ops (and the Pallas lifting
 kernels in interpret mode) and the port's functions on the CPU; every
 comparison is bit-exact: the ops are integer or a fixed f32 op sequence.
-The kernels' own check on the card is in test_torch_rans.py.
+Kernel B's plain version (dequantize + inverse lifting + the decode
+tail) is held against the Pallas kernel followed by the JAX program's
+pixel gather, clamp and inverse transform, on the pixel maps of real
+programs. The kernels' own check on the card is in test_torch_cuda.py.
 """
 
 import numpy as np
@@ -190,7 +193,7 @@ def test_dequantize_inverse_lift_plain(depth, T_):
         )
     ).T
     np.testing.assert_array_equal(pallas, ref)
-    out = L.dequantize_inverse_lift(
+    out = L.dequantize_inverse_lift_plain(
         _t(qcoef), _t(node_mask), _t(leaf_mask.astype(np.uint8)), _t(qdiv), depth
     )
     np.testing.assert_array_equal(out.numpy(), ref)
@@ -206,5 +209,54 @@ def test_wrappers_reject_bad_operands():
         L.forward_lift_quantize(x[:, :256], m, q, 9)
     with pytest.raises(ValueError):
         L.forward_lift_quantize(x, m[:3], q, 9)
+    # kernel B: a non-contiguous row, depth 7, a bad transform id
+    pix = torch.zeros(4 * 512, dtype=torch.int32)
+    inv = torch.zeros(16, dtype=torch.int64)
+    plane = torch.zeros((3, 4 * 512), dtype=torch.int32)
     with pytest.raises(ValueError):
-        L.dequantize_inverse_lift(x.T.contiguous().T, m, m, q, 9)
+        L.dequantize_inverse_lift_pixels(plane.T.contiguous().T, m, m, q, pix, inv, 0)
+    with pytest.raises(ValueError):
+        L.dequantize_inverse_lift_pixels(plane, m[:, :128], m[:, :128], q[:128], pix, inv, 0)
+    with pytest.raises(ValueError):
+        L.dequantize_inverse_lift_pixels(plane, m, m, q, pix, inv, 4)
+
+
+def _lift_pixels_reference(qplane, nm, lm, qdiv, pix_inv, tid):
+    """frave_tpu's decode tail: the Pallas dequantize_inverse_lift in
+    interpret mode on the [N, C*T] layout, then the pix_inv gather, the
+    clip to [0, 255] and pipeline_jax._inverse_transform_device."""
+    from frave_tpu.codec.pipeline_jax import _inverse_transform_device
+    from frave_tpu.ops.pallas_lifting import dequantize_inverse_lift
+
+    C = qplane.shape[0]
+    Tn, n = nm.shape
+    qnt = jnp.asarray(qplane[:, : Tn * n].reshape(C, Tn, n)).transpose(2, 0, 1).reshape(n, C * Tn)
+    nmt = jnp.broadcast_to(jnp.asarray(nm).T[:, None, :], (n, C, Tn)).reshape(n, C * Tn)
+    lmt = jnp.broadcast_to(jnp.asarray(lm).T[:, None, :], (n, C, Tn)).reshape(n, C * Tn)
+    leaves = _run_interpret(dequantize_inverse_lift, qnt, nmt, lmt, jnp.asarray(qdiv), 9)
+    leaves = leaves.reshape(n, C, Tn).transpose(1, 2, 0)
+    planes = jnp.clip(leaves.reshape(C, -1)[:, jnp.asarray(pix_inv)], 0, 255)
+    if C == 3:
+        planes = _inverse_transform_device(planes, jnp.int32(tid))
+    return np.asarray(planes.astype(jnp.uint8))
+
+
+@pytest.mark.parametrize(
+    "h,w,c,tid", [(64, 64, 1, 0)] + [(96, 80, 3, tid) for tid in range(4)]
+)
+def test_dequantize_inverse_lift_pixels_plain_matches_jax(h, w, c, tid):
+    """Kernel B's function on a real program's masks and pixel map (the
+    64x64 gray and 96x80 RGB programs), every transform id at C = 3;
+    tolerance 0: the function is integer-only."""
+    from frave_tpu_torch.kernel_check import lift_pixels_problem, program
+
+    args, extra = lift_pixels_problem(np.random.default_rng(30 + tid), program(h, w, c, "cpu"), tid)
+    qplane, nm, lm, qdiv, _, pix_inv = (a.numpy() for a in args)
+    ref = _lift_pixels_reference(qplane, nm, lm, qdiv, pix_inv, tid)
+    assert ref.shape == (c, h * w)
+    assert (ref == 0).any() and (ref == 255).any()  # the clamp binds
+    before = L.dequantize_inverse_lift_pixels.launches
+    out = L.dequantize_inverse_lift_pixels(*args, *extra)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert L.dequantize_inverse_lift_pixels.launches == before  # CPU: no kernel
+

@@ -295,6 +295,25 @@ def test_program_constants_match_jax(env):
     assert pt.group_ranges == pj._group_ranges
 
 
+@pytest.mark.parametrize("h,w", [(64, 64), (96, 80)])
+def test_program_pixel_map_is_a_bijection(env, h, w):
+    """leaf_pix (kernel B's scatter) and pix_inv (the gather it replaces)
+    are inverse maps on the programs of the tests' shapes, and a map that
+    hits a pixel twice or misses one is refused."""
+    pt = PT.CodecProgram.from_host(h, w, 32, 1, "cpu")
+    lp, inv = pt.leaf_pix.numpy(), pt.pix_inv.numpy()
+    inb = lp >= 0
+    np.testing.assert_array_equal(np.sort(lp[inb]), np.arange(h * w))
+    np.testing.assert_array_equal(lp[inv], np.arange(h * w))
+    np.testing.assert_array_equal(PT.pixel_inverse(lp, h * w), inv)
+    bad = lp.copy()
+    bad[np.nonzero(inb)[0][:2]] = lp[np.nonzero(inb)[0][0]]  # one pixel twice
+    with pytest.raises(AssertionError):
+        PT.pixel_inverse(bad, h * w)
+    with pytest.raises(AssertionError):
+        PT.pixel_inverse(lp, h * w - 1)  # a leaf past the last pixel
+
+
 @pytest.mark.parametrize("name", ["v9grid_gray", "v9grid_rgb"])
 def test_golden_grid_fixtures_decode(name):
     blob = open(os.path.join(DATA, f"{name}.frv"), "rb").read()
