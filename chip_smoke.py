@@ -13,11 +13,14 @@ script exits nonzero without printing a result:
   2. kernels — each image's CodecProgram built (timed); each kernel
                against its plain PyTorch version on the same card
                tensors, bit-equal, at the shapes every image of the main
-               path gives it (lifting rows; encode_scan's grid under a row
-               map of several waves with partly filled last rows, and at
-               every design point: rows loaded ahead x lanes a block;
-               dequantize_inverse_lift_pixels on the image's own program,
-               every transform id at C = 3; the largest decode wave);
+               path gives it (forward_lift_quantize_pixels on the image's
+               own program, every transform id at C = 3, lossless and
+               lossy qdiv, and at every tiles a block; encode_scan's grid
+               under a row map of several waves with partly filled last
+               rows, and at every design point: rows loaded ahead x lanes
+               a block; dequantize_inverse_lift_pixels on the image's own
+               program, every transform id at C = 3; the largest decode
+               wave);
                decode_scan_wave also on valid and garbage waves up to
                32,768 lanes, at its launch rule's cluster size and forced
                to 1, 2, 4, 8 and 16 blocks. Kernel times are device times
@@ -28,8 +31,9 @@ script exits nonzero without printing a result:
   3. main    — the port's public encode -> decode (seeded
                natural-statistics images), three paths (a-c), each with the
                launch counts zeroed just before it and read just after it
-               (every kernel launched, encode_scan once an encode,
-               dequantize_inverse_lift_pixels once a decode,
+               (every kernel launched, forward_lift_quantize_pixels and
+               encode_scan once an encode, dequantize_inverse_lift_pixels
+               once a decode,
                decode_scan_wave once per non-empty wave, the plain decode
                row never; every container at the lane count the kernels
                phase checked). Every image is held
@@ -43,14 +47,16 @@ script exits nonzero without printing a result:
                backend, tests/make_torch_refs.py):
                a. 256x256 gray and 768x512 RGB, lossless, the golden v9
                   grid fixtures decoded, 16 byte flips decoded without a
-                  crash;
+                  crash; then a color_transform="trial" encode of 768x512
+                  RGB, one kernel A and one kernel C launch a candidate;
                b. 512x512 gray at HIGH, MEDIUM and LOW;
                c. 2048x2048 RGB, lossless (oracle checks only), first-call
                   time and peak device memory;
   4. report  — encode/decode ms and MP/s, per-stage ms at every image, kernel
                3's device time per 2048x2048 RGB decode at the launch rule
-               and forced to one block, kernel B's device time with and
-               without its pixel stores, peak device memory, the card's
+               and forced to one block, kernel A's device time with and
+               without its pixel reads, kernel B's with and without its
+               pixel stores, peak device memory, the card's
                name and power limit, then one JSON line of kernels and,
                last, the result line.
 
@@ -86,6 +92,7 @@ from frave_tpu_torch.entropy.tables import (
 from frave_tpu_torch.fractal.geometry import get_geometry
 from frave_tpu_torch.fractal.schedule import default_num_lanes, get_schedule, grid_row_lane
 from frave_tpu_torch.ops import _build
+from frave_tpu_torch.ops import lifting as L
 from frave_tpu_torch.ops import rans_torch as RT
 from frave_tpu_torch.testing import REF_IMAGES, natural_image
 
@@ -275,8 +282,9 @@ def zero_counts():
 
 def read_counts(label: str, waves: int, trips: int) -> dict:
     """The counts since zero_counts() over `trips` encode -> decode round
-    trips: every kernel must have launched, encode_scan once an encode,
-    dequantize_inverse_lift_pixels once a decode, decode_scan_wave exactly
+    trips: every kernel must have launched, forward_lift_quantize_pixels
+    and encode_scan once an encode, dequantize_inverse_lift_pixels once a
+    decode, decode_scan_wave exactly
     once per non-empty wave of the decodes (`waves` in all), and the plain
     decode row must not have run."""
     launches = {n: fn.launches for n, fn in WRAPPERS.items()}
@@ -284,15 +292,15 @@ def read_counts(label: str, waves: int, trips: int) -> dict:
         if k <= 0:
             raise AssertionError(f"{label}: kernel {n} was not launched on the main path")
     want = {"decode_scan_wave": waves, "encode_scan": trips,
-            "dequantize_inverse_lift_pixels": trips}
+            "forward_lift_quantize_pixels": trips, "dequantize_inverse_lift_pixels": trips}
     for n, k in want.items():
         if launches[n] != k:
             raise AssertionError(f"{label}: {launches[n]} {n} launches, expected {k}")
     if RT.decode_row.calls:
         raise AssertionError(f"{label}: the plain decode row ran {RT.decode_row.calls} times")
-    print(f"main {label}: launches {json.dumps(launches)} (encode_scan one an encode, "
-          f"dequantize_inverse_lift_pixels one a decode, decode_scan_wave one per "
-          f"non-empty wave); plain decode rows 0")
+    print(f"main {label}: launches {json.dumps(launches)} (forward_lift_quantize_pixels and "
+          f"encode_scan one an encode, dequantize_inverse_lift_pixels one a decode, "
+          f"decode_scan_wave one per non-empty wave); plain decode rows 0")
     return launches
 
 
@@ -345,16 +353,14 @@ def stage_ms(px, opts, dev) -> dict:
 
 def grid_shapes(h: int, w: int, c: int, nl: int = 0) -> dict:
     """The shapes the main path gives the kernels at an h x w x c image
-    with nl lanes (0: the default count): "lift" (rows, mask rows) of
-    forward_lift_quantize, "grid" (R, C, NL) of encode_scan, "wave" the
-    largest decode wave (rows, C, NL), and "waves" the number of
-    non-empty waves, one decode_scan_wave launch each (kernel B runs on
-    the image's program itself)."""
+    with nl lanes (0: the default count): "grid" (R, C, NL) of
+    encode_scan, "wave" the largest decode wave (rows, C, NL), and "waves"
+    the number of non-empty waves, one decode_scan_wave launch each
+    (kernels A and B run on the image's program itself)."""
     sched = get_schedule(h, w, mode="grid")
     nl = nl or default_num_lanes(sched.num_symbols)
-    tiles = get_geometry(h, w).num_tiles
     _, _, rows, per_wave = grid_row_lane(sched, nl)
-    return {"lift": (c * tiles, tiles), "grid": (int(rows), c, nl),
+    return {"grid": (int(rows), c, nl),
             "wave": (int(per_wave.max()), c, nl), "waves": int((per_wave > 0).sum())}
 
 
@@ -380,6 +386,9 @@ def run_checks(plan: dict, dev, checks: dict) -> None:
             desc = f"kernel {name} {tuple(sh)}{'' if pk is None else f' {pk}'}"
             if name == "dequantize_inverse_lift_pixels":
                 desc = f"kernel {name} {sh[0]}x{sh[1]}x{sh[2]} program, transform {pk}"
+            if name == "forward_lift_quantize_pixels":
+                desc = (f"kernel {name} {sh[0]}x{sh[1]}x{sh[2]} program, transform {pk[0]}, "
+                        f"{pk[1]} qdiv")
             if name == "decode_scan_wave":
                 desc += f" clusters {list(clusters)} (rule: {r['cluster']})"
             times = ""
@@ -488,9 +497,14 @@ def main() -> int:
     ] + [((40, 1, 512), "valid", True, CLUSTERS)]  # a small one-block wave, timed
     for label, px in all_images.items():
         sh = shapes[label]
-        plan["forward_lift_quantize"].append((sh["lift"], None, True, (0,)))
-        # kernel B on the image's own program, every transform id at C = 3
-        for tid in range(4) if px.shape[2] == 3 else (0,):
+        # kernels A and B on the image's own program, every transform id at
+        # C = 3; A at the lossy qdiv and then the lossless one (the main
+        # path's, so the kernels line reports it)
+        tids = range(4) if px.shape[2] == 3 else (0,)
+        for q in kernel_check.QDIV_KINDS[::-1]:
+            for tid in tids:
+                plan["forward_lift_quantize_pixels"].append((px.shape, (tid, q), True, (0,)))
+        for tid in tids:
             plan["dequantize_inverse_lift_pixels"].append((px.shape, tid, True, (0,)))
         plan["encode_scan"].append((sh["grid"], None, True, (0,)))
         plan["decode_scan_wave"].append((sh["wave"], "garbage", False, CLUSTERS))
@@ -502,6 +516,13 @@ def main() -> int:
               "(kernel B's checks and the main path share it)")
     checks = {}
     run_checks(plan, dev, checks)
+    for label, px in all_images.items():
+        sweep = kernel_check.lift_head_tiles_ms(px.shape, dev)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        rule = L.forward_lift_plan(px.shape[2], get_geometry(*px.shape[:2]).num_tiles, sms)
+        print(f"kernel forward_lift_quantize_pixels {label} device ms by tiles a block, each "
+              f"bit-equal to the plain version (rule: {rule}): "
+              + json.dumps({str(k): round(ms, 4) for k, ms in sweep.items()}))
     for label in all_images:
         R, C, NL = shapes[label]["grid"]
         sweep = kernel_check.encode_design_ms((R, C, NL), dev)
@@ -568,6 +589,20 @@ def main() -> int:
             rejected += 1
     torch.cuda.synchronize(dev)
     print(f"main robustness: 16 byte flips -> {decoded} decoded, {rejected} rejected, no crash")
+
+    # color_transform="trial": one encode, so one kernel A and one kernel C
+    # launch, a candidate transform (three at LOSSLESS)
+    trial_label = "768x512 RGB"
+    zero_counts()
+    blob = frave_tpu_torch.encode(images[trial_label], EncoderOptions(color_transform="trial"),
+                                  device="cuda")
+    got = {n: WRAPPERS[n].launches for n in ("forward_lift_quantize_pixels", "encode_scan")}
+    if got != {n: 3 for n in got}:
+        raise AssertionError(f"{trial_label} trial: launches {got}, expected 3 each")
+    if not np.array_equal(frave_tpu_torch.decode(blob, device="cuda").data, images[trial_label]):
+        raise AssertionError(f"{trial_label} trial: the container does not round-trip")
+    print(f"main {trial_label} trial: launches {json.dumps(got)} (one each a candidate "
+          f"transform, three at LOSSLESS); the smallest container ({len(blob)} B) round-trips")
     print(f"phase main lossless done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 3b. the three lossy presets at 512x512 gray
@@ -628,6 +663,10 @@ def main() -> int:
         print(f"report {label}: decode_scan_wave device ms per decode "
               f"({shapes[label]['waves']} launches): launch rule {rule_ms:.4f}, one block "
               f"{one_ms:.4f}, byte bound {bound_ms:.5f}")
+    for label, px in all_images.items():
+        full, skip = kernel_check.lift_head_read_ms(px.shape, dev)
+        print(f"report {label}: forward_lift_quantize_pixels device ms {full:.4f}, "
+              f"{skip:.4f} with every pixel read skipped (leaf_pix all -1)")
     for label, px in all_images.items():
         full, skip = kernel_check.lift_pixels_store_ms(px.shape, dev)
         print(f"report {label}: dequantize_inverse_lift_pixels device ms {full:.4f}, "

@@ -1,8 +1,8 @@
 """The codec's device pipeline in PyTorch: the port of
 frave_tpu/codec/pipeline_jax.py, grid mode, one image (B=1).
 
-Encode (CodecProgram.encode_exec): channel transform -> leaf gather ->
-forward lifting + quantize (kernel A) -> statistics (the step-tensor
+Encode (CodecProgram.encode_exec): channel transform, leaf gather,
+forward lifting + quantize (one launch, kernel A) -> statistics (the step-tensor
 gather below K = 2^18 symbols, the dense shift-plane path of
 grid_decode.build_grid_encode from there up) -> Gram/Cholesky predictor
 fits rounded to the f16 wire values -> contexts and zig-zag symbols ->
@@ -43,7 +43,7 @@ from ..fractal.schedule import (
 )
 from ..images import AnsContextTables, ChannelData, ColorSpace, CompressedImage, RasterImage
 from ..ops import torch_ops as T
-from ..ops.lifting import forward_lift_quantize
+from ..ops.lifting import forward_lift_quantize_pixels
 from ..ops.rans_torch import encode_scan, pack_u16_pairs, row_map, stream_compact_grid
 from .channel_transform import choose_transform
 from .options import EncoderOptions, quantization_matrix
@@ -220,8 +220,6 @@ class CodecProgram:
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
 
         pg = geo.pixel_gather.astype(np.int64)  # [T, N]
-        self.leaf_safe = put(np.where(pg >= 0, pg, 0))
-        self.leaf_mask = put(pg >= 0, torch.bool)
         self.leaf_mask_u8 = put(pg >= 0, torch.uint8)
         self.sc = put(sched.sched_coef)
         self.snbr_safe = put(
@@ -254,9 +252,9 @@ class CodecProgram:
             raise AssertionError("row map disagrees with grid_row_lane")
         self.row_k0 = put(row_k0, _I32)
         self.row_len = put(row_len, _I32)
-        # pixel assembly: kernel B scatters leaf i to pixel leaf_pix[i]
-        # (-1 out of bounds); the plain version gathers pixel p from leaf
-        # pix_inv[p]
+        # the pixel map: kernel A gathers leaf i from pixel leaf_pix[i] and
+        # kernel B scatters it back (-1 out of bounds); B's plain version
+        # gathers pixel p from leaf pix_inv[p]
         pgf = pg.reshape(-1)
         self.leaf_pix = put(pgf, _I32)
         self.pix_inv = put(pixel_inverse(pgf, h * w))
@@ -314,21 +312,13 @@ class CodecProgram:
         bits), bits, off-list bitmask, scale indices, lane states,
         expected code length (f32 bits); then the stream total and the
         u16 stream packed in pairs."""
-        C, Tn, nl = self.channels, self.num_tiles, self.nl
-        N = 1 << self.depth
+        C = self.channels
         dev = self.device
         if stages is not None:
             stages.start()
-        planes = pixels.reshape(-1, C).T.to(_I32)
-        if C == 3:
-            planes = T.channel_transform(planes, tid)
-        leaves = torch.where(
-            self.leaf_mask[None], planes[:, self.leaf_safe], torch.zeros((), dtype=_I32, device=dev)
-        ).reshape(C * Tn, N)
-        qcoef = forward_lift_quantize(leaves.contiguous(), self.leaf_mask_u8, qdiv, self.depth)
-        qplane = torch.cat(
-            [qcoef.reshape(C, self.n_slots), torch.zeros((C, 1), dtype=_I32, device=dev)], dim=1
-        )
+        # channel transform, leaf gather, lifting, quantize and the zero
+        # slot: kernel A -> [C, n_slots + 1]
+        qplane = forward_lift_quantize_pixels(pixels, self.leaf_pix, qdiv, tid)
         if stages is not None:
             stages.mark("encode/lift")
         ovr = self._overrides(overrides)

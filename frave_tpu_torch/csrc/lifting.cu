@@ -1,25 +1,60 @@
-// Per-tile Haar lifting kernels for Hopper (sm_90a), plain C interface.
+// Per-tile Haar lifting kernels for Hopper (sm_90a), plain C interface,
+// depth 9 (512 leaves a tile) only.
 //
-// frave_fwd_lift_quant (kernel A) replaces frave_tpu/ops/pallas_lifting.py
-// forward_lift_quantize (_fwd_kernel): the TPU kernel walked 128 tiles at
-// once in an [N, T] nodes-on-sublanes layout; here the layout is [rows, N]
-// (one tile's 2^depth nodes contiguous, the layout of
-// ops/jax_ops.forward_lifting), and one block of 256 threads walks one
-// tile's tree in shared memory, one lifting level per __syncthreads().
-// Bound: device memory (4 B in, 4 B out, 1 B of mask an element).
+// frave_fwd_lift_pixels (kernel A) is the whole encode head: it replaces
+// frave_tpu/ops/pallas_lifting.py forward_lift_quantize (_fwd_kernel)
+// together with what frave_tpu/codec/pipeline_jax.py:423-428 runs before
+// it (pixels.T, the channel transform _transform_device and the leaf
+// gather under leaf_mask) and the trailing zero slot that the statistics
+// read as the missing neighbour. It reads the [H*W, C] u8 image through
+// the pixel map leaf_pix and writes the [C, >= T*512 + 1] int32
+// coefficient plane the statistics read. Bound: device memory, and only
+// what the head needs: the pixels once (12.6 MB at 2048x2048 RGB; read
+// through L2, which holds all of them), leaf_pix once (17.3 MB) and the
+// plane once (51.9 MB), about 82 MB or 0.024 ms at 3.35 TB/s. The
+// previous design took eight torch launches around a lifting kernel (the
+// transpose and cast, up to eight transform passes, an int64 gather of
+// the leaves, a masked select, a copy, the kernel and a concatenation for
+// the zero slot: well over 400 MB at 2048x2048 RGB), and its kernel
+// spent one block of 256 threads per channel row, 18 barriers a row with
+// the top levels on 128, 64, ... 1 threads, a scalar global qdiv read and
+// a divide an element. Design:
+//   * a block of 512 threads takes `tpb` tiles (the wrapper's launch rule;
+//     at most 16 / C) and stages qdiv in shared memory once;
+//   * phase 1, one thread a leaf: thread k takes leaf k of each of the
+//     block's tiles (so a warp takes 32 consecutive leaves, a compact patch
+//     of pixels), loads its leaf_pix entries first, then the C bytes of
+//     each in-bounds pixel, applies the forward transform `tid` in
+//     registers and stages the C coding bytes and the in-bounds flag in
+//     shared memory (0 and 0 out of bounds); one __syncthreads;
+//   * phase 2, a warp lifts one channel row of one tile in registers
+//     (kernel B's layout, run upwards): lane i reads the bytes and flags of
+//     the 16 leaves under level-5 node i as one 16-byte load each and lifts
+//     levels 8-5 in registers, which gives the coefficient runs
+//     256+8i..+7, 128+4i..+3, 64+2i..+1 and 32+i; levels 4-0 go through
+//     __shfl_down_sync with the masks, and one shuffle a level hands lane k
+//     haar index k of the top 32;
+//   * the truncated quantize (C++ `/`, skipped where q is 1) and vector
+//     stores straight into the plane: every lane's runs as int4 / int2
+//     stores, the warp's 2 KB row coalesced;
+//   * block 0 writes the zero slot of every channel row, and the padding
+//     columns after it, on every call (the plane comes from torch.empty).
+// A node whose leaves are all out of bounds is 0 (out-of-bounds leaves
+// stage 0), and a missing child contributes 0, which is the reference's
+// masked lifting.
 //
 // frave_inv_lift_pixels (kernel B) replaces dequantize_inverse_lift
 // (_inv_kernel) together with the decode tail after it
 // (frave_tpu/codec/grid_decode.py:511-514: the pix_inv gather, the clamp
-// to [0, 255] and the inverse channel transform), depth 9 only. Bound:
-// device memory, and only what the decode needs: the coefficient plane is
-// read where it lies (no [C*T, 512] copy), the masks once a tile for all
-// C channels, leaf_pix once, and the pixels written once as bytes (about
-// 90 MB, 0.027 ms at 3.35 TB/s, at 2048x2048 RGB). The previous design
-// spent one block of 256 threads per channel row with 9 levels between
-// barriers (the top levels with 1, 2, 4, ... threads working), read every
-// mask byte once per channel, and wrote int32 leaves that three more
-// launches read back. Design:
+// to [0, 255] and the inverse channel transform). Bound: device memory,
+// and only what the decode needs: the coefficient plane is read where it
+// lies (no [C*T, 512] copy), the masks once a tile for all C channels,
+// leaf_pix once, and the pixels written once as bytes (about 90 MB, 0.027
+// ms at 3.35 TB/s, at 2048x2048 RGB). The previous design spent one block
+// of 256 threads per channel row with 9 levels between barriers (the top
+// levels with 1, 2, 4, ... threads working), read every mask byte once
+// per channel, and wrote int32 leaves that three more launches read back.
+// Design:
 //   * a warp lifts one channel row of one tile in registers, with no
 //     block barrier: lane i owns the subtree under level-5 node i (16
 //     leaves), whose coefficients at levels 5-8 are the runs 32+i,
@@ -45,56 +80,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // one pair per thread at the widest level
-constexpr int kMaxDepth = 9;   // 512 nodes per tile
-
-__global__ void fwd_lift_quant_kernel(const int32_t* __restrict__ leaves,
-                                      const uint8_t* __restrict__ mask,
-                                      int mask_rows,
-                                      const int32_t* __restrict__ qdiv,
-                                      int32_t* __restrict__ out, int depth) {
-  __shared__ int32_t vals[1 << kMaxDepth];
-  __shared__ int32_t coef[1 << kMaxDepth];
-  __shared__ uint8_t msk[1 << kMaxDepth];
-  const int n = 1 << depth;
-  const int64_t row = blockIdx.x;
-  const int32_t* src = leaves + row * n;
-  const uint8_t* msrc = mask + (row % mask_rows) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    vals[i] = src[i];
-    msk[i] = msrc[i] != 0;
-  }
-  __syncthreads();
-  for (int level = depth - 1; level >= 0; --level) {
-    const int pairs = 1 << level;
-    const int p = threadIdx.x;
-    int32_t low = 0;
-    uint8_t m = 0;
-    if (p < pairs) {
-      const bool lm = msk[2 * p], rm = msk[2 * p + 1];
-      const int32_t l0 = lm ? vals[2 * p] : 0;
-      const int32_t r0 = rm ? vals[2 * p + 1] : 0;
-      const bool both = lm && rm;
-      const int32_t c = both ? l0 - r0 : 0;
-      coef[pairs + p] = c;  // haar indices [2^level, 2^(level+1))
-      low = both ? r0 + c / 2 : l0 + r0;
-      m = lm || rm;
-    }
-    __syncthreads();  // every pair is read before any low is written
-    if (p < pairs) {
-      vals[p] = low;
-      msk[p] = m;
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) coef[0] = msk[0] ? vals[0] : 0;
-  __syncthreads();
-  int32_t* dst = out + row * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = coef[i] / qdiv[i];
-}
-
-// ---- kernel B: dequantize + inverse lifting + pixel write, depth 9
-
 constexpr int kLeaves = 512;      // nodes of a depth-9 tile
 constexpr int kMaxTilesBlock = 16;
 constexpr int kWarpsBlock = 16;   // a block: floor(16 / C) tiles of C warps
@@ -107,6 +92,175 @@ __device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
 __device__ __forceinline__ int32_t wmul(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) * static_cast<uint32_t>(b));
 }
+
+__device__ __forceinline__ int sgn8(int x) { return ((x + 128) & 255) - 128; }
+
+// forward channel transform `tid` of raw (r, g, b): the coding values
+__device__ __forceinline__ void forward_transform(int tid, int r, int g, int b,
+                                                  int& a0, int& a1, int& a2) {
+  switch (tid) {
+    case 1:
+      a0 = (r - g) & 255; a1 = g; a2 = (b - g) & 255;
+      break;
+    case 2:
+      a0 = min(max(r - g + 128, 0), 255); a1 = g;
+      a2 = min(max(b - g + 128, 0), 255);
+      break;
+    case 3: {  // -> (y, co, cg)
+      const int co = (r - b) & 255;
+      const int t = (b + (sgn8(co) >> 1)) & 255;
+      const int cg = (g - t) & 255;
+      a0 = (t + (sgn8(cg) >> 1)) & 255; a1 = co; a2 = cg;
+      break;
+    }
+    default:
+      a0 = r; a1 = g; a2 = b;
+  }
+}
+
+// ---- kernel A: the encode head (transform, leaf gather, forward lifting,
+// quantize, zero slot), depth 9
+
+constexpr int kHeadThreads = 512;  // one a leaf in phase 1, 16 warps
+static_assert(kHeadThreads == kLeaves && kHeadThreads == 32 * kWarpsBlock,
+              "phase 1 takes one leaf a thread, phase 2 one row a warp");
+
+// one forward lifting step over a child pair: coefficient c, parent value
+// v and mask m (an absent child contributes 0)
+__device__ __forceinline__ void fwd_step(int32_t lv, bool lm, int32_t rv, bool rm,
+                                         int32_t& c, int32_t& v, bool& m) {
+  const int32_t l0 = lm ? lv : 0, r0 = rm ? rv : 0;
+  const bool both = lm && rm;
+  c = both ? l0 - r0 : 0;
+  v = both ? r0 + c / 2 : l0 + r0;
+  m = lm || rm;
+}
+
+__device__ __forceinline__ int32_t quant(int32_t c, int32_t q) {
+  return q == 1 ? c : c / q;
+}
+
+__device__ __forceinline__ int byte_of(const uint32_t* w, int e) {
+  return static_cast<int>((w[e >> 2] >> (8 * (e & 3))) & 0xFFu);
+}
+
+// three blocks an SM (at most 40 registers a thread): a block's loads sit
+// behind its one barrier, so the SM overlaps them with other blocks' lifting
+template <int CH>
+__global__ void __launch_bounds__(kHeadThreads, 3)
+fwd_lift_pixels_kernel(const uint8_t* __restrict__ pixels,
+                       const int32_t* __restrict__ leaf_pix,
+                       const int32_t* __restrict__ qdiv, int32_t* __restrict__ out,
+                       int64_t qstride, int64_t hw, int tiles, int tid, int tpb) {
+  constexpr int kMaxT = kWarpsBlock / CH;
+  __shared__ __align__(16) uint8_t s_px[kMaxT][CH][kLeaves];
+  __shared__ __align__(16) uint8_t s_in[kMaxT][kLeaves];
+  __shared__ __align__(16) int32_t s_q[kLeaves];
+  const int tile0 = blockIdx.x * tpb;
+  const int leaf = threadIdx.x;
+  s_q[leaf] = __ldg(qdiv + leaf);
+
+  if (blockIdx.x == 0) {  // the zero slot and the padding after it
+    const int64_t n = static_cast<int64_t>(tiles) * kLeaves;
+    const int pad = static_cast<int>(qstride - n);
+    for (int k = threadIdx.x; k < CH * pad; k += blockDim.x)
+      out[(k / pad) * qstride + n + k % pad] = 0;
+  }
+
+  // phase 1: leaf `leaf` of each of the block's tiles. Straight-line
+  // predicated loads: every leaf_pix load goes out, then every pixel load,
+  // before the first byte is used
+  int p[kMaxT];
+#pragma unroll
+  for (int j = 0; j < kMaxT; ++j)
+    p[j] = j < tpb && tile0 + j < tiles
+               ? __ldg(leaf_pix + static_cast<int64_t>(tile0 + j) * kLeaves + leaf)
+               : -1;
+  int raw[kMaxT][CH];
+#pragma unroll
+  for (int j = 0; j < kMaxT; ++j) {
+    const bool in = p[j] >= 0 && p[j] < hw;
+    const uint8_t* px = pixels + CH * static_cast<int64_t>(in ? p[j] : 0);
+#pragma unroll
+    for (int c = 0; c < CH; ++c) raw[j][c] = in ? __ldg(px + c) : 0;
+  }
+#pragma unroll
+  for (int j = 0; j < kMaxT; ++j) {
+    if (j < tpb) {
+      int a[CH];
+      if constexpr (CH == 3)
+        forward_transform(tid, raw[j][0], raw[j][1], raw[j][2], a[0], a[1], a[2]);
+      else
+        a[0] = raw[j][0];
+      // an out-of-bounds leaf stages 0 (a transform may map 0 elsewhere)
+      const bool in = p[j] >= 0 && p[j] < hw;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) s_px[j][c][leaf] = static_cast<uint8_t>(in ? a[c] : 0);
+      s_in[j][leaf] = in;
+    }
+  }
+  __syncthreads();
+
+  // phase 2: warp (tile tl, channel c) lifts its row; no barrier below
+  const int warp = threadIdx.x >> 5, i = threadIdx.x & 31;
+  const int tl = warp / CH, c = warp % CH;
+  if (tl >= tpb || tile0 + tl >= tiles) return;
+  const uint4 pv = reinterpret_cast<const uint4*>(s_px[tl][c])[i];
+  const uint4 mv = reinterpret_cast<const uint4*>(s_in[tl])[i];
+  const uint32_t pw[4] = {pv.x, pv.y, pv.z, pv.w};
+  const uint32_t mw[4] = {mv.x, mv.y, mv.z, mv.w};
+  // levels 8-5 over the lane's 16 leaves 16i..16i+15
+  int32_t c8[8], v8[8], c7[4], v7[4], c6[2], v6[2], c5, v5;
+  bool m8[8], m7[4], m6[2], m5;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    fwd_step(byte_of(pw, 2 * j), byte_of(mw, 2 * j) != 0, byte_of(pw, 2 * j + 1),
+             byte_of(mw, 2 * j + 1) != 0, c8[j], v8[j], m8[j]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    fwd_step(v8[2 * j], m8[2 * j], v8[2 * j + 1], m8[2 * j + 1], c7[j], v7[j], m7[j]);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    fwd_step(v7[2 * j], m7[2 * j], v7[2 * j + 1], m7[2 * j + 1], c6[j], v6[j], m6[j]);
+  fwd_step(v6[0], m6[0], v6[1], m6[1], c5, v5, m5);
+  // levels 4-0 across lanes: after level l, lane k with k % 2^(5-l) == 0
+  // holds node k >> (5-l) of level l, and ct[l] its coefficient, haar
+  // index 2^l + (k >> (5-l))
+  int32_t v = v5, ct[5];
+  bool m = m5;
+#pragma unroll
+  for (int l = 4; l >= 0; --l) {
+    const int d = 1 << (4 - l);
+    const int32_t rv = __shfl_down_sync(kFull, v, d);
+    const bool rm = __shfl_down_sync(kFull, static_cast<int>(m), d) != 0;
+    fwd_step(v, m, rv, rm, ct[l], v, m);
+  }
+  // lane k takes haar index k: the DC (lane 0's root) or coefficient
+  // 2^l + p of level l = floor(log2 k), held by lane p << (5-l)
+  int32_t top = __shfl_sync(kFull, m ? v : 0, 0);
+#pragma unroll
+  for (int l = 0; l < 5; ++l) {
+    const int32_t x = __shfl_sync(kFull, ct[l], ((i - (1 << l)) << (5 - l)) & 31);
+    if (i >> l == 1) top = x;
+  }
+  // quantize with qdiv read as the same runs, and store
+  const int4 q8a = reinterpret_cast<const int4*>(s_q + 256)[2 * i];
+  const int4 q8b = reinterpret_cast<const int4*>(s_q + 256)[2 * i + 1];
+  const int4 q7 = reinterpret_cast<const int4*>(s_q + 128)[i];
+  const int2 q6 = reinterpret_cast<const int2*>(s_q + 64)[i];
+  int32_t* base = out + c * qstride + static_cast<int64_t>(tile0 + tl) * kLeaves;
+  base[i] = quant(top, s_q[i]);
+  base[32 + i] = quant(c5, s_q[32 + i]);
+  reinterpret_cast<int2*>(base + 64)[i] = make_int2(quant(c6[0], q6.x), quant(c6[1], q6.y));
+  reinterpret_cast<int4*>(base + 128)[i] =
+      make_int4(quant(c7[0], q7.x), quant(c7[1], q7.y), quant(c7[2], q7.z), quant(c7[3], q7.w));
+  reinterpret_cast<int4*>(base + 256)[2 * i] =
+      make_int4(quant(c8[0], q8a.x), quant(c8[1], q8a.y), quant(c8[2], q8a.z), quant(c8[3], q8a.w));
+  reinterpret_cast<int4*>(base + 256)[2 * i + 1] =
+      make_int4(quant(c8[4], q8b.x), quant(c8[5], q8b.y), quant(c8[6], q8b.z), quant(c8[7], q8b.w));
+}
+
+// ---- kernel B: dequantize + inverse lifting + pixel write, depth 9
 
 __device__ __forceinline__ int32_t dequant(int32_t c, int32_t q) {
   // midpoint dequantize c*q + sign(c)*floor((q-1)/2)
@@ -126,8 +280,6 @@ __device__ __forceinline__ void inv_step(int32_t v, int32_t c, bool both,
 __device__ __forceinline__ bool pair_both(uint32_t w, int half) {
   return ((w >> (16 * half)) & 0xFFu) && ((w >> (16 * half + 8)) & 0xFFu);
 }
-
-__device__ __forceinline__ int sgn8(int x) { return ((x + 128) & 255) - 128; }
 
 // inverse channel transform `tid` of clamped coding values (a, g, c)
 __device__ __forceinline__ void inverse_transform(int tid, int a, int g, int c,
@@ -287,17 +439,33 @@ inv_lift_pixels_kernel(const int32_t* __restrict__ qplane, int64_t qstride,
 
 }  // namespace
 
-extern "C" int frave_fwd_lift_quant(const void* leaves, const void* mask,
-                                    int mask_rows, const void* qdiv, void* out,
-                                    int rows, int depth, void* stream) {
-  if (depth < 1 || depth > kMaxDepth || rows < 0 || mask_rows < 1)
+// pixels [hw, channels] u8 (HWC), leaf_pix [tiles * 512] int32 (-1 out of
+// bounds), qdiv [512] int32 (>= 1), hw >= 1 (pixel 0 is read in place of
+// an out-of-bounds leaf's, and the bytes dropped); out: C rows of row stride qstride int32
+// (>= tiles * 512 + 1, a multiple of 4), 16-byte aligned. Writes columns
+// 0 .. tiles * 512 - 1 (the plane) and zeros from tiles * 512 up to the
+// stride. channels 1 or 3 (the transform `tid`, 0-3, runs at 3); tpb tiles
+// a block, 1 .. 16 / channels.
+extern "C" int frave_fwd_lift_pixels(const void* pixels, const void* leaf_pix,
+                                     const void* qdiv, void* out, long long qstride,
+                                     long long hw, int tiles, int channels, int tid,
+                                     int tpb, void* stream) {
+  if ((channels != 1 && channels != 3) || tiles < 0 || hw < 0 || tid < 0 || tid > 3 ||
+      qstride < static_cast<long long>(tiles) * kLeaves + 1 || qstride % 4 || tpb < 1 ||
+      tpb > kWarpsBlock / channels || (tiles > 0 && hw < 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (rows == 0) return 0;
-  fwd_lift_quant_kernel<<<rows, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(leaves), static_cast<const uint8_t*>(mask),
-      mask_rows, static_cast<const int32_t*>(qdiv),
-      static_cast<int32_t*>(out), depth);
+  const int blocks = tiles > 0 ? (tiles + tpb - 1) / tpb : 1;  // >= 1: the zero slot
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* px = static_cast<const uint8_t*>(pixels);
+  const auto* lp = static_cast<const int32_t*>(leaf_pix);
+  const auto* q = static_cast<const int32_t*>(qdiv);
+  auto* o = static_cast<int32_t*>(out);
+  if (channels == 1)
+    fwd_lift_pixels_kernel<1><<<blocks, kHeadThreads, 0, st>>>(px, lp, q, o, qstride, hw, tiles,
+                                                               0, tpb);
+  else
+    fwd_lift_pixels_kernel<3><<<blocks, kHeadThreads, 0, st>>>(px, lp, q, o, qstride, hw, tiles,
+                                                               tid, tpb);
   return static_cast<int>(cudaGetLastError());
 }
 

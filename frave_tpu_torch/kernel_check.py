@@ -22,11 +22,11 @@ from .ops import rans_torch as RT
 
 # name -> (wrapper, plain version, CUDA source, the TPU kernel it replaces)
 KERNELS = {
-    "forward_lift_quantize": (
-        L.forward_lift_quantize,
-        L.forward_lift_quantize_plain,
+    "forward_lift_quantize_pixels": (
+        L.forward_lift_quantize_pixels,
+        L.forward_lift_quantize_pixels_plain,
         "frave_tpu_torch/csrc/lifting.cu",
-        "frave_tpu/ops/pallas_lifting.py:120",
+        "frave_tpu/ops/pallas_lifting.py:120 + frave_tpu/codec/pipeline_jax.py:423-428",
     ),
     "dequantize_inverse_lift_pixels": (
         L.dequantize_inverse_lift_pixels,
@@ -51,9 +51,11 @@ KERNELS = {
 HBM_BYTES_PER_S = 3.35e12
 # cluster sizes kernel 3 can be forced to
 CLUSTERS = (1, 2, 4, 8, 16)
-# problem kinds of decode_scan_wave (kernel B's kind is its transform id;
-# the other kernels have one kind, None)
+# problem kinds of decode_scan_wave (kernel B's kind is its transform id,
+# kernel A's a (transform id, qdiv) pair from QDIV_KINDS; the other kernels
+# have one kind, None)
 DECODE_KINDS = ("valid", "garbage")
+QDIV_KINDS = ("lossless", "lossy")
 # kernel C's design points: rows loaded ahead, lanes a block
 ENCODE_AHEAD = (4, 8, 16)
 ENCODE_THREADS = (32, 64, 128, 256)
@@ -61,20 +63,6 @@ ENCODE_THREADS = (32, 64, 128, 256)
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
-
-
-def lifting_problem(rng, rows: int, mask_rows: int, depth: int = 9):
-    """(leaves [rows, N] int32 pre-masked, leaf mask, node mask
-    [mask_rows, N] uint8, qdiv [N] int32 not all ones) on the CPU."""
-    n = 1 << depth
-    leaf_mask = rng.random((mask_rows, n)) > 0.1
-    node_mask = rng.random((mask_rows, n)) > 0.05
-    leaves = rng.integers(0, 256, size=(rows, n))
-    leaves = np.where(np.tile(leaf_mask, (rows // mask_rows, 1)), leaves, 0)
-    return (
-        _t(leaves.astype(np.int32)), _t(leaf_mask.astype(np.uint8)),
-        _t(node_mask.astype(np.uint8)), _lossy_qdiv(n),
-    )
 
 
 def _lossy_qdiv(n: int) -> torch.Tensor:
@@ -201,6 +189,19 @@ def lift_pixels_problem(rng, prog, tid: int):
     return args, (tid,)
 
 
+def lift_head_problem(rng, prog, tid: int, qkind: str = "lossy"):
+    """forward_lift_quantize_pixels' operands from a CodecProgram (its pixel
+    map) on the program's device: seeded pixels [H*W, C] uint8, leaf_pix,
+    and qdiv all ones ("lossless") or _lossy_qdiv ("lossy"). Returns
+    (args, (tid,))."""
+    C, dev = prog.channels, prog.device
+    if qkind not in QDIV_KINDS:
+        raise ValueError(f"unknown qdiv kind {qkind!r}")
+    qdiv = _lossy_qdiv(512) if qkind == "lossy" else torch.ones(512, dtype=torch.int32)
+    pixels = _t(rng.integers(0, 256, size=(prog.height * prog.width, C), dtype=np.uint8))
+    return (pixels.to(dev), prog.leaf_pix, qdiv.to(dev)), (tid,)
+
+
 def program(h: int, w: int, c: int, device):
     """The cached CodecProgram of an h x w x c image at its default lane
     count (the main path's)."""
@@ -213,20 +214,19 @@ def program(h: int, w: int, c: int, device):
 
 def problem(name: str, rng, shape, kind=None, device="cpu"):
     """(positional args, extra args) for kernel `name` at `shape`:
-    forward_lift_quantize (rows, mask_rows); encode_scan and
-    decode_scan_wave (R, C, NL), on the CPU; dequantize_inverse_lift_pixels
+    encode_scan and decode_scan_wave (R, C, NL), on the CPU;
+    forward_lift_quantize_pixels and dequantize_inverse_lift_pixels
     (h, w, c) on `device`, the program of that image. `kind` picks
-    decode_scan_wave's problem (DECODE_KINDS) and kernel B's transform id
-    (0-3)."""
+    decode_scan_wave's problem (DECODE_KINDS), kernel B's transform id
+    (0-3) and kernel A's (transform id, qdiv kind) (default (0, "lossy"))."""
     if name == "decode_scan_wave":
         return decode_problem(rng, *shape, kind), ()
     if name == "dequantize_inverse_lift_pixels":
         return lift_pixels_problem(rng, program(*shape, device), kind or 0)
+    if name == "forward_lift_quantize_pixels":
+        return lift_head_problem(rng, program(*shape, device), *(kind or (0,)))
     if kind is not None:
         raise ValueError(f"{name} has no problem kinds")
-    if name == "forward_lift_quantize":
-        leaves, lm, _, qdiv = lifting_problem(rng, *shape)
-        return (leaves, lm, qdiv), (9,)
     if name == "encode_scan":
         return rans_problem(rng, *shape), (shape[2],)
     raise KeyError(name)
@@ -307,7 +307,8 @@ def bytes_moved(name: str, args, out) -> int:
     read once and every output written once; of decode_scan_wave's stream,
     only the words the wave consumes (the rest is padding it never reads);
     of kernel B's, the T*512 columns of each coefficient row and not
-    pix_inv, which only the plain version reads."""
+    pix_inv, which only the plain version reads; of kernel A's, the pixels,
+    leaf_pix, qdiv and the T*512 + 1 columns it writes a channel."""
     if name == "dequantize_inverse_lift_pixels":
         qplane, nm, lm, qdiv, leaf_pix, _ = args
         used = qplane.shape[0] * nm.numel() * qplane.element_size()
@@ -398,3 +399,36 @@ def lift_pixels_store_ms(shape, device, seed: int = 7) -> tuple:
     return tuple(device_ms(lambda a=a: L.dequantize_inverse_lift_pixels(*a, *extra))
                  for a in (args, skip))
 
+
+def lift_head_read_ms(shape, device, seed: int = 7) -> tuple:
+    """Kernel A's pixel reads in isolation, on the program of the h x w x c
+    image `shape` (lossless qdiv): (device ms of the kernel, device ms with
+    every leaf out of bounds, leaf_pix all -1, so that it reads leaf_pix,
+    lifts zeros and writes the whole plane but reads no pixel)."""
+    args, extra = problem("forward_lift_quantize_pixels", np.random.default_rng(seed),
+                          shape, (0, "lossless"), device)
+    skip = (args[0], torch.full_like(args[1], -1), args[2])
+    return tuple(device_ms(lambda a=a: L.forward_lift_quantize_pixels(*a, *extra))
+                 for a in (args, skip))
+
+
+def lift_head_tiles_ms(shape, device, seed: int = 7) -> dict:
+    """Kernel A at every tiles a block (1 .. 16 // C) on the program of the
+    h x w x c image `shape`, transform 3 at C = 3, lossy qdiv: each must be
+    bit-equal to the plain version (raises otherwise). Returns {tiles:
+    device ms}."""
+    kind = (3 if shape[2] == 3 else 0, "lossy")
+    args, extra = problem("forward_lift_quantize_pixels", np.random.default_rng(seed),
+                          shape, kind, device)
+    ref = L.forward_lift_quantize_pixels_plain(*args, *extra)
+    out = {}
+    for tpb in range(1, L.WARPS_BLOCK // shape[2] + 1):
+        def call():
+            return L.forward_lift_quantize_pixels(*args, *extra, tiles=tpb)
+
+        err = _max_abs_err(call(), ref)
+        if err:
+            raise AssertionError(f"forward_lift_quantize_pixels {tuple(shape)} tiles {tpb}: "
+                                 f"disagrees with its plain version ({err})")
+        out[tpb] = device_ms(call)
+    return out

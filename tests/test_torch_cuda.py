@@ -10,11 +10,10 @@ import torch
 from frave_tpu_torch import kernel_check
 from frave_tpu_torch.ops import lifting as L
 
-# the slice's shapes: lifting rows x mask rows (256x256 gray: 160 tiles;
-# 768x512 RGB: 3 x 844 tiles), kernel B's images h x w x c (it runs on
+# the slice's shapes: the lifting kernels' images h x w x c (they run on
 # their programs), rANS grids R x C x NL
 SHAPES = {
-    "forward_lift_quantize": [(7, 7), (160, 160), (2532, 844)],
+    "forward_lift_quantize_pixels": [(64, 64, 1), (96, 80, 3), (256, 256, 1), (512, 768, 3)],
     "dequantize_inverse_lift_pixels": [(64, 64, 1), (96, 80, 3), (256, 256, 1), (512, 768, 3)],
     "encode_scan": [(5, 1, 32), (133, 1, 512), (200, 3, 2048)],
     # R x C x NL up to 2048x2048 RGB's 16,384 lanes and the pinned 32,768;
@@ -35,8 +34,11 @@ def test_cuda_kernel_matches_plain(name):
     kinds = kernel_check.DECODE_KINDS if decode else (None,)
     clusters = (0,) + kernel_check.CLUSTERS if decode else (0,)
     for shape in SHAPES[name]:
+        tids = range(4) if len(shape) == 3 and shape[2] == 3 else (0,)
         if name == "dequantize_inverse_lift_pixels":
-            kinds = range(4) if shape[2] == 3 else (0,)
+            kinds = tids
+        if name == "forward_lift_quantize_pixels":
+            kinds = [(tid, q) for tid in tids for q in kernel_check.QDIV_KINDS]
         for kind in kinds:
             res = kernel_check.check(name, shape, torch.device("cuda"), kind=kind,
                                      clusters=clusters)
@@ -58,6 +60,50 @@ def test_cuda_lift_pixels_refuses_unaligned_rows():
     with pytest.raises(ValueError):
         L.dequantize_inverse_lift_pixels(padded, *args[1:], *extra)
     assert L.dequantize_inverse_lift_pixels.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_lift_head_writes_aligned_plane_and_zero_slot():
+    """Kernel A's plane: rows 16-byte aligned, the zero slot 0; launched
+    into a buffer first filled with garbage, it writes every column of
+    the plane, the zero slot and the padding after it; a forced tiles a
+    block outside 1 .. 16 // C raises without launching."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    from frave_tpu_torch.ops import _build
+
+    prog = kernel_check.program(96, 80, 3, torch.device("cuda"))
+    args, extra = kernel_check.lift_head_problem(np.random.default_rng(2), prog, 3)
+    ref = L.forward_lift_quantize_pixels_plain(*args, *extra)
+    out = L.forward_lift_quantize_pixels(*args, *extra)
+    assert out.data_ptr() % 16 == 0 and out.stride(0) % 4 == 0 and out.stride(1) == 1
+    assert (out[:, -1] == 0).all()
+    assert torch.equal(out, ref)
+    pixels, leaf_pix, qdiv = args
+    C, n = pixels.shape[1], leaf_pix.shape[0]
+    stride = (n + 4) // 4 * 4
+    buf = torch.full((C, stride), -123456, dtype=torch.int32, device=pixels.device)
+    code = _build.load_library().frave_fwd_lift_pixels(
+        pixels.data_ptr(), leaf_pix.data_ptr(), qdiv.data_ptr(), buf.data_ptr(), stride,
+        pixels.shape[0], n // 512, C, extra[0], 2, _build.current_stream(pixels.device),
+    )
+    _build.check(code, "frave_fwd_lift_pixels")
+    torch.cuda.synchronize()
+    assert torch.equal(buf[:, : n + 1], ref)
+    assert (buf[:, n:] == 0).all()
+    before = L.forward_lift_quantize_pixels.launches
+    with pytest.raises(ValueError):
+        L.forward_lift_quantize_pixels(*args, *extra, tiles=16 // C + 1)
+    assert L.forward_lift_quantize_pixels.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_lift_head_tiles_a_block():
+    """Kernel A at every tiles a block the sweep measures."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    for shape in ((64, 64, 1), (96, 80, 3)):
+        kernel_check.lift_head_tiles_ms(shape, torch.device("cuda"))
 
 
 @pytest.mark.cuda

@@ -3,10 +3,13 @@
 The same seeded numpy inputs go through jax_ops (and the Pallas lifting
 kernels in interpret mode) and the port's functions on the CPU; every
 comparison is bit-exact: the ops are integer or a fixed f32 op sequence.
-Kernel B's plain version (dequantize + inverse lifting + the decode
-tail) is held against the Pallas kernel followed by the JAX program's
-pixel gather, clamp and inverse transform, on the pixel maps of real
-programs. The kernels' own check on the card is in test_torch_cuda.py.
+Kernel A's plain version (the encode head: channel transform, leaf
+gather, forward lifting, quantize, zero slot) is held against the JAX
+program's transform and gather followed by the Pallas kernel, and kernel
+B's (dequantize + inverse lifting + the decode tail) against the Pallas
+kernel followed by the JAX program's pixel gather, clamp and inverse
+transform, both on the pixel maps of real programs. The kernels' own
+check on the card is in test_torch_cuda.py.
 """
 
 import numpy as np
@@ -157,15 +160,13 @@ def test_forward_lift_quantize_plain(depth, T_):
         )
     ).T
     np.testing.assert_array_equal(pallas, ref)
-    before = L.forward_lift_quantize.launches
-    out = L.forward_lift_quantize(_t(leaves), _t(mask.astype(np.uint8)), _t(qdiv), depth)
+    out = L.forward_lift_quantize_plain(_t(leaves), _t(mask.astype(np.uint8)), _t(qdiv), depth)
     np.testing.assert_array_equal(out.numpy(), ref)
     # the mask is per tile: two "channels" of the same tiles share it
-    out2 = L.forward_lift_quantize(
+    out2 = L.forward_lift_quantize_plain(
         _t(np.concatenate([leaves, leaves])), _t(mask), _t(qdiv), depth
     )
     np.testing.assert_array_equal(out2.numpy(), np.concatenate([ref, ref]))
-    assert L.forward_lift_quantize.launches == before  # CPU: no kernel
 
 
 @pytest.mark.parametrize("depth,T_", [(9, 130), (7, 64)])
@@ -200,17 +201,25 @@ def test_dequantize_inverse_lift_plain(depth, T_):
 
 
 def test_wrappers_reject_bad_operands():
-    x = torch.zeros((4, 512), dtype=torch.int32)
     m = torch.ones((4, 512), dtype=torch.uint8)
     q = torch.ones(512, dtype=torch.int32)
-    with pytest.raises(TypeError):
-        L.forward_lift_quantize(x.to(torch.int64), m, q, 9)
-    with pytest.raises(ValueError):
-        L.forward_lift_quantize(x[:, :256], m, q, 9)
-    with pytest.raises(ValueError):
-        L.forward_lift_quantize(x, m[:3], q, 9)
-    # kernel B: a non-contiguous row, depth 7, a bad transform id
     pix = torch.zeros(4 * 512, dtype=torch.int32)
+    # kernel A: a wrong dtype, a leaf_pix that is not T*512, a bad transform
+    # id, C not in {1, 3}, a qdiv that is not [512]
+    px = torch.zeros((16, 3), dtype=torch.uint8)
+    with pytest.raises(TypeError):
+        L.forward_lift_quantize_pixels(px.to(torch.int32), pix, q, 0)
+    with pytest.raises(TypeError):
+        L.forward_lift_quantize_pixels(px, pix.to(torch.int64), q, 0)
+    with pytest.raises(ValueError):
+        L.forward_lift_quantize_pixels(px, pix[:-1], q, 0)
+    with pytest.raises(ValueError):
+        L.forward_lift_quantize_pixels(px, pix, q, 4)
+    with pytest.raises(ValueError):
+        L.forward_lift_quantize_pixels(torch.zeros((16, 2), dtype=torch.uint8), pix, q, 0)
+    with pytest.raises(ValueError):
+        L.forward_lift_quantize_pixels(px, pix, q[:256], 0)
+    # kernel B: a non-contiguous row, depth 7, a bad transform id
     inv = torch.zeros(16, dtype=torch.int64)
     plane = torch.zeros((3, 4 * 512), dtype=torch.int32)
     with pytest.raises(ValueError):
@@ -219,6 +228,68 @@ def test_wrappers_reject_bad_operands():
         L.dequantize_inverse_lift_pixels(plane, m[:, :128], m[:, :128], q[:128], pix, inv, 0)
     with pytest.raises(ValueError):
         L.dequantize_inverse_lift_pixels(plane, m, m, q, pix, inv, 4)
+
+
+def _lift_head_reference(pixels, qdiv, tid, h, w):
+    """frave_tpu's encode head (pipeline_jax's encode before the
+    statistics): pixels.T, _transform_device at C = 3, the leaf_safe
+    gather under leaf_mask (the JAX package's geometry), the Pallas
+    forward_lift_quantize in interpret mode on the [N, C*T] layout, and
+    the zero slot appended to every channel row."""
+    from frave_tpu.codec.pipeline_jax import _transform_device
+    from frave_tpu.fractal.geometry import get_geometry
+    from frave_tpu.ops.pallas_lifting import forward_lift_quantize
+
+    C = pixels.shape[1]
+    pg = get_geometry(h, w, 9).pixel_gather.astype(np.int64)
+    Tn, n = pg.shape
+    leaf_mask = jnp.asarray(pg >= 0)
+    planes = jnp.asarray(pixels).T.astype(jnp.int32)
+    if C == 3:
+        planes = _transform_device(planes, jnp.int32(tid))
+    leaves = jnp.where(leaf_mask[None], planes[:, jnp.asarray(np.where(pg >= 0, pg, 0))], 0)
+    nt = leaves.astype(jnp.int32).transpose(2, 0, 1).reshape(n, C * Tn)
+    mt = jnp.broadcast_to(leaf_mask.T[:, None, :], (n, C, Tn)).reshape(n, C * Tn)
+    q = _run_interpret(forward_lift_quantize, nt, mt, jnp.asarray(qdiv), 9)
+    qcoef = np.asarray(q).reshape(n, C, Tn).transpose(1, 2, 0).reshape(C, Tn * n)
+    return np.concatenate([qcoef, np.zeros((C, 1), np.int32)], axis=1)
+
+
+@pytest.mark.parametrize("qkind", ["lossy", "lossless"])
+@pytest.mark.parametrize(
+    "h,w,c,tid", [(64, 64, 1, 0)] + [(96, 80, 3, tid) for tid in range(4)]
+)
+def test_forward_lift_quantize_pixels_plain_matches_jax(h, w, c, tid, qkind):
+    """Kernel A's function (the encode head) on a real program's pixel map
+    (the 64x64 gray and 96x80 RGB programs), every transform id at C = 3,
+    a lossy qdiv (1/2/3) and the lossless one; tolerance 0: the function
+    is integer-only."""
+    from frave_tpu_torch.kernel_check import lift_head_problem, program
+
+    prog = program(h, w, c, "cpu")
+    args, extra = lift_head_problem(np.random.default_rng(40 + tid), prog, tid, qkind)
+    pixels, _, qdiv = (a.numpy() for a in args)
+    ref = _lift_head_reference(pixels, qdiv, tid, h, w)
+    assert ref.shape == (c, prog.num_tiles * 512 + 1)
+    assert (ref[:, :-1] < 0).any()  # the truncated divide meets negative coefficients
+    before = L.forward_lift_quantize_pixels.launches
+    out = L.forward_lift_quantize_pixels(*args, *extra)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert (out[:, -1] == 0).all()  # the zero slot
+    assert L.forward_lift_quantize_pixels.launches == before  # CPU: no kernel
+
+
+@pytest.mark.parametrize(
+    "c,tiles,want",
+    # the smoke's images on 132 SMs (256x256 gray, 512x512 gray, 768x512
+    # RGB: 2 and 4 tie, 2048x2048 RGB), a one-tile image, and 2048x2048
+    # gray (5 and 13 tie)
+    [(1, 160, 2), (1, 578, 5), (3, 844, 4), (3, 8453, 5), (3, 1, 2), (1, 8453, 13)],
+)
+def test_forward_lift_plan(c, tiles, want):
+    """Kernel A's launch rule: the fewest tiles on the busiest SM, a tie to
+    the larger count, always within 2 .. 16 // C."""
+    assert L.forward_lift_plan(c, tiles, 132) == want
 
 
 def _lift_pixels_reference(qplane, nm, lm, qdiv, pix_inv, tid):

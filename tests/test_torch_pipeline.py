@@ -284,12 +284,14 @@ def test_program_constants_match_jax(env):
     h, w, c, nl = 64, 64, 1, 32
     pj = PJ.get_program(h, w, 9, nl, c, "grid")
     pt = PT.CodecProgram.from_host(h, w, nl, c, "cpu")
-    enc = (pt.leaf_safe, pt.leaf_mask, pt.sc, pt.snbr_safe, pt.slf, pt.sgrp,
+    # the leaf gather and mask are kernel A's pixel map, leaf_pix
+    lp = pt.leaf_pix.numpy().astype(np.int64).reshape(pt.num_tiles, -1)
+    enc = (np.where(lp >= 0, lp, 0), lp >= 0, pt.sc, pt.snbr_safe, pt.slf, pt.sgrp,
            pt.sfbkt, pt.lap, pt.glog2, pt.gzero)  # pipeline_jax's _enc_args order
     assert len(enc) == len(pj._enc_args)
     for a, b in zip(enc, pj._enc_args):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    for a, b in zip((pt.pix_inv, pt.node_mask, pt.leaf_mask), pj._dec_args[6:9]):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    for a, b in zip((pt.pix_inv, pt.node_mask, pt.leaf_mask_u8.bool()), pj._dec_args[6:9]):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     assert (pt.rows, pt.hdr_words, pt.kc) == (pj.rows, pj.hdr_words, pj.kc)
     assert pt.group_ranges == pj._group_ranges
