@@ -23,7 +23,12 @@ script exits nonzero without printing a result:
                wave);
                decode_scan_wave also on valid and garbage waves up to
                32,768 lanes, at its launch rule's cluster size and forced
-               to 1, 2, 4, 8 and 16 blocks. Kernel times are device times
+               to 1, 2, 4, 8 and 16 blocks; then every kernel on whole
+               batches in one launch: 768x512 RGB at B = 4 (mixed
+               transform ids and qdivs), kernel 3 on (30, 3, 16384) waves
+               at B = 12 (more 16-block clusters than the card holds at
+               once), and, timed last (the kernels line reports them),
+               256x256 gray at B = 64. Kernel times are device times
                of back-to-back calls (kernel_check.device_ms), beside the
                wrapper's and the plain version's CUDA-event medians per
                call; the byte bound of each; the empty cross-block
@@ -50,8 +55,20 @@ script exits nonzero without printing a result:
                   crash; then a color_transform="trial" encode of 768x512
                   RGB, one kernel A and one kernel C launch a candidate;
                b. 512x512 gray at HIGH, MEDIUM and LOW;
-               c. 2048x2048 RGB, lossless (oracle checks only), first-call
-                  time and peak device memory;
+               c. 2048x2048 RGB, lossless, first-call time and peak
+                  device memory;
+               d. the batch surface: 64 256x256 gray images in one batch
+                  (each container byte-equal to its one-image container,
+                  each decode the image; one kernel A and C launch for the
+                  encode batch, one kernel B and one kernel 3 per
+                  non-empty wave for the decode batch) and its encode,
+                  decode and round-trip MP/s (median of 5 warm runs)
+                  beside one image's; 4 768x512 RGB images encoded at
+                  HIGH with forced transform ids 0-3 and at LOSSLESS,
+                  decoded in one batch that mixes the two presets, the
+                  oracle cross-decoding two of them both ways; the
+                  256-image stream round trip in batches of 64, with
+                  device_verify reading 0 mismatches and without;
   4. report  — encode/decode ms and MP/s, per-stage ms at every image, kernel
                3's device time per 2048x2048 RGB decode at the launch rule
                and forced to one block, kernel A's device time with and
@@ -72,6 +89,8 @@ import os
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -81,7 +100,7 @@ from frave_tpu_torch import EncoderOptions, EncoderQuality, RasterImage, kernel_
 from frave_tpu_torch.codec import grid_decode as GD
 from frave_tpu_torch.codec import pipeline_torch as PT
 from frave_tpu_torch.codec.channel_transform import choose_transform
-from frave_tpu_torch.codec.container import SerializeError, deserialize
+from frave_tpu_torch.codec.container import SerializeError, deserialize, serialize
 from frave_tpu_torch.entropy.tables import (
     CONTEXT_AMOUNT,
     ENC_FREQ_BITS_CAP,
@@ -90,7 +109,6 @@ from frave_tpu_torch.entropy.tables import (
     _LAPLACE_GRID_ROWS,
 )
 from frave_tpu_torch.fractal.geometry import get_geometry
-from frave_tpu_torch.fractal.schedule import default_num_lanes, get_schedule, grid_row_lane
 from frave_tpu_torch.ops import _build
 from frave_tpu_torch.ops import lifting as L
 from frave_tpu_torch.ops import rans_torch as RT
@@ -103,6 +121,11 @@ ORACLE_HEADERS = ("csrc/geometry_core.h",)
 ORACLE_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off")
 CLUSTERS = (0,) + kernel_check.CLUSTERS  # 0: the launch rule
 EXCHANGE_ROWS = 266  # rows of one 2048x2048 RGB decode
+BATCH = 64  # bench.py's batch: 64 256x256 gray images
+GRAY = (256, 256)  # (h, w) of its images
+RGB = (512, 768)  # (h, w) of path d's RGB batch
+CORPUS = 256  # bench.py's corpus, four batches of BATCH
+RUNS = 5  # warm runs a batch timing takes the median of
 
 
 # ---------------------------------------------------------------- oracle
@@ -241,8 +264,7 @@ def compare_ref(entry, px, oracle):
               f"sha256 {digest[:16]}...)")
         return
     ci = deserialize(blob)
-    _, (_, hist), _, _ = PT._encode_dispatch(RasterImage.from_array(px), opts, "cuda")
-    hist = hist.cpu().numpy()
+    hist = PT._encode_dispatch([RasterImage.from_array(px)], opts, "cuda").hist[0].cpu().numpy()
     ties, other = [], []
     for c, rows in enumerate(entry["contexts"]):
         for k, (rb, rs) in enumerate(rows):
@@ -280,27 +302,23 @@ def zero_counts():
     RT.decode_row.calls = 0
 
 
-def read_counts(label: str, waves: int, trips: int) -> dict:
-    """The counts since zero_counts() over `trips` encode -> decode round
-    trips: every kernel must have launched, forward_lift_quantize_pixels
-    and encode_scan once an encode, dequantize_inverse_lift_pixels once a
-    decode, decode_scan_wave exactly
-    once per non-empty wave of the decodes (`waves` in all), and the plain
-    decode row must not have run."""
+def read_counts(label: str, encodes: int, decodes: int, waves: int) -> dict:
+    """The counts since zero_counts() over `encodes` encode batches and
+    `decodes` decode batches (a one-image call is a batch of one): exactly
+    one forward_lift_quantize_pixels and one encode_scan launch an encode
+    batch, one dequantize_inverse_lift_pixels a decode batch, one
+    decode_scan_wave per non-empty wave of each decode batch (`waves` in
+    all), whatever the batch size; the plain decode row never."""
     launches = {n: fn.launches for n, fn in WRAPPERS.items()}
-    for n, k in launches.items():
-        if k <= 0:
-            raise AssertionError(f"{label}: kernel {n} was not launched on the main path")
-    want = {"decode_scan_wave": waves, "encode_scan": trips,
-            "forward_lift_quantize_pixels": trips, "dequantize_inverse_lift_pixels": trips}
-    for n, k in want.items():
-        if launches[n] != k:
-            raise AssertionError(f"{label}: {launches[n]} {n} launches, expected {k}")
+    want = {"forward_lift_quantize_pixels": encodes, "encode_scan": encodes,
+            "dequantize_inverse_lift_pixels": decodes, "decode_scan_wave": waves}
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
     if RT.decode_row.calls:
         raise AssertionError(f"{label}: the plain decode row ran {RT.decode_row.calls} times")
-    print(f"main {label}: launches {json.dumps(launches)} (forward_lift_quantize_pixels and "
-          f"encode_scan one an encode, dequantize_inverse_lift_pixels one a decode, "
-          f"decode_scan_wave one per non-empty wave); plain decode rows 0")
+    print(f"main {label}: launches {json.dumps(launches)} (one kernel A and C an encode "
+          f"batch, one kernel B a decode batch, one kernel 3 per non-empty wave of a decode "
+          f"batch); plain decode rows 0")
     return launches
 
 
@@ -351,19 +369,6 @@ def stage_ms(px, opts, dev) -> dict:
     return {k: round(v, 3) for k, v in {**st_e.ms, **st_d.ms}.items()}
 
 
-def grid_shapes(h: int, w: int, c: int, nl: int = 0) -> dict:
-    """The shapes the main path gives the kernels at an h x w x c image
-    with nl lanes (0: the default count): "grid" (R, C, NL) of
-    encode_scan, "wave" the largest decode wave (rows, C, NL), and "waves"
-    the number of non-empty waves, one decode_scan_wave launch each
-    (kernels A and B run on the image's program itself)."""
-    sched = get_schedule(h, w, mode="grid")
-    nl = nl or default_num_lanes(sched.num_symbols)
-    _, _, rows, per_wave = grid_row_lane(sched, nl)
-    return {"grid": (int(rows), c, nl),
-            "wave": (int(per_wave.max()), c, nl), "waves": int((per_wave > 0).sum())}
-
-
 def same_lanes(label: str, shape: dict, *blobs: bytes) -> None:
     """Each container has the lane count that the kernels phase checked
     the kernels at (a rate-adaptive re-encode would lower it)."""
@@ -378,17 +383,21 @@ def same_lanes(label: str, shape: dict, *blobs: bytes) -> None:
 
 def run_checks(plan: dict, dev, checks: dict) -> None:
     """Each kernel against its plain version at the shapes of `plan`
-    ({name: [(shape, problem kind, timed, cluster sizes)]}); appends to
-    `checks`."""
+    ({name: [(shape, problem kind, timed, cluster sizes, images)]}, images
+    0 for one image without a batch axis, else the batch size, the
+    transform ids and qdivs mixed across it); appends to `checks`."""
     for name, cases in plan.items():
-        for sh, pk, timed, clusters in cases:
-            r = kernel_check.check(name, sh, dev, seed=7, timed=timed, kind=pk, clusters=clusters)
+        for sh, pk, timed, clusters, images in cases:
+            r = kernel_check.check(name, sh, dev, seed=7, timed=timed, kind=pk,
+                                   clusters=clusters, images=images)
             desc = f"kernel {name} {tuple(sh)}{'' if pk is None else f' {pk}'}"
             if name == "dequantize_inverse_lift_pixels":
                 desc = f"kernel {name} {sh[0]}x{sh[1]}x{sh[2]} program, transform {pk}"
             if name == "forward_lift_quantize_pixels":
                 desc = (f"kernel {name} {sh[0]}x{sh[1]}x{sh[2]} program, transform {pk[0]}, "
                         f"{pk[1]} qdiv")
+            if images:
+                desc += f", batch of {images} in one launch"
             if name == "decode_scan_wave":
                 desc += f" clusters {list(clusters)} (rule: {r['cluster']})"
             times = ""
@@ -444,6 +453,197 @@ def decode_kernel_ms(blob: bytes, dev) -> tuple:
     return rule, one, nbytes / kernel_check.HBM_BYTES_PER_S * 1e3
 
 
+# ---------------------------------------------------------------- batches
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def sync_times(fn, dev, runs: int = 0) -> list:
+    """Wall seconds of `runs` (0: RUNS) synchronised calls of fn after one
+    warm call."""
+    runs = runs or RUNS
+    fn()
+    out = []
+    for _ in range(runs):
+        sync(dev)
+        t = time.perf_counter()
+        fn()
+        sync(dev)
+        out.append(time.perf_counter() - t)
+    return out
+
+
+def dispatch_syncs(fn) -> list:
+    """Where fn() makes a synchronising torch call: the distinct file:line
+    of the innermost frame of the port (else of torch) under each warning
+    of torch.cuda.set_sync_debug_mode "warn" (the kernels' own launches go
+    through ctypes and are not torch calls)."""
+    sites = set()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        stack = [f for f in traceback.extract_stack()[:-1]
+                 if os.path.basename(f.filename) != "warnings.py"]
+        port = [f for f in stack if f.filename.startswith(os.path.join(HERE, "frave_tpu_torch"))]
+        f = port[-1] if port else stack[-1]
+        sites.add(f"{os.path.relpath(f.filename, HERE)}:{f.lineno}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sorted(sites)
+
+
+def rate_line(label: str, mpix: float, secs: list) -> str:
+    """MP/s of `mpix` megapixels: the median of the runs and their spread."""
+    rates = sorted(mpix / t for t in secs)
+    return (f"{label} {float(np.median(rates)):.3f} MP/s (median of {len(rates)}, "
+            f"spread {rates[0]:.3f}-{rates[-1]:.3f}; {float(np.median(secs)) * 1e3:.3f} ms)")
+
+
+def path_d_gray(dev, totals: dict) -> dict:
+    """64 256x256 gray images in one batch: each container byte-equal to its
+    one-image container, each decode its image, the exact launch counts;
+    then the B = 64 encode, decode and round-trip MP/s beside one
+    image's, and the batch's peak device memory."""
+    label = f"d {BATCH}x {GRAY[0]}x{GRAY[1]} gray"
+    px = [natural_image(*GRAY, 1, seed) for seed in range(BATCH)]
+    imgs = [RasterImage.from_array(p) for p in px]
+    opts = EncoderOptions()
+    waves = kernel_check.grid_shapes(*GRAY, 1)["waves"]
+    solo = [frave_tpu_torch.encode(p, opts, device=dev) for p in px]
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    cis = PT.encode_pipeline_torch_batch(imgs, opts, dev)
+    outs = PT.decode_pipeline_torch_batch(cis, dev)
+    sync(dev)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    for n, k in read_counts(label, 1, 1, waves).items():
+        totals[n] += k
+    blobs = [serialize(ci) for ci in cis]
+    for i, (blob, one, out) in enumerate(zip(blobs, solo, outs)):
+        if blob != one:
+            raise AssertionError(f"{label}: image {i}'s batch container differs from its "
+                                 "one-image container")
+        if not np.array_equal(out.data, px[i]):
+            raise AssertionError(f"{label}: image {i} does not decode to itself")
+    if dev.type == "cuda":
+        for stage, fn in (("encode", lambda: PT._encode_dispatch(imgs, opts, dev)),
+                          ("decode", lambda: PT._decode_dispatch(cis, dev))):
+            syncs = dispatch_syncs(fn)
+            print(f"main {label}: {stage} dispatch makes {len(syncs)} synchronising torch "
+                  f"call(s){': ' + json.dumps(syncs) if syncs else ''}")
+    nbytes = sum(len(b) for b in blobs)
+    print(f"main {label}: {BATCH} containers ({nbytes} B, "
+          f"{8.0 * nbytes / (BATCH * GRAY[0] * GRAY[1]):.4f} "
+          f"bpp) byte-equal to the one-image containers, each decoding to its image; peak "
+          f"device memory {peak} B (torch.cuda.max_memory_allocated)")
+
+    def round_trip(batch):
+        cs = PT.encode_pipeline_torch_batch(batch, opts, dev)
+        return PT.decode_pipeline_torch_batch([deserialize(serialize(c)) for c in cs], dev)
+
+    mp = GRAY[0] * GRAY[1] / 1e6
+    rates = {
+        "encode": (sync_times(lambda: PT.encode_pipeline_torch_batch(imgs, opts, dev), dev),
+                   sync_times(lambda: PT.encode_pipeline_torch_batch(imgs[:1], opts, dev), dev)),
+        "decode": (sync_times(lambda: PT.decode_pipeline_torch_batch(cis, dev), dev),
+                   sync_times(lambda: PT.decode_pipeline_torch_batch(cis[:1], dev), dev)),
+        "round trip": (sync_times(lambda: round_trip(imgs), dev),
+                       sync_times(lambda: round_trip(imgs[:1]), dev)),
+    }
+    out = {"peak_bytes": peak}
+    for stage, (batch_s, one_s) in rates.items():
+        print(f"report {label} {stage}: " + rate_line(f"B={BATCH}", BATCH * mp, batch_s) + "; "
+              + rate_line("B=1", mp, one_s))
+        out[stage] = (float(np.median([BATCH * mp / t for t in batch_s])),
+                      float(np.median([mp / t for t in one_s])))
+    return out
+
+
+def path_d_rgb(dev, totals: dict, oracle) -> None:
+    """4 768x512 RGB images encoded in one batch at HIGH with forced
+    transform ids 0-3 and in one at LOSSLESS (auto transforms), then one
+    decode batch mixing the two presets: every container byte-equal to
+    its one-image container, every decode to its one-image decode (the
+    input where lossless), the exact launch counts; the oracle
+    cross-decodes two of the batch's containers both ways."""
+    label = f"d 4x {RGB[1]}x{RGB[0]} RGB"
+    px = [natural_image(*RGB, 3, 10 + i) for i in range(4)]
+    imgs = [RasterImage.from_array(p) for p in px]
+    high, lossless = EncoderOptions(quality=EncoderQuality.HIGH), EncoderOptions()
+    waves = kernel_check.grid_shapes(*RGB, 3)["waves"]
+    solo_h = [serialize(PT._encode_finish(PT._encode_dispatch([im], high, dev, tids=[t]),
+                                          high)[0]) for t, im in enumerate(imgs)]
+    solo_l = [serialize(PT.encode_pipeline_torch(im, lossless, dev)) for im in imgs]
+    zero_counts()
+    cis_h = PT._encode_finish(PT._encode_dispatch(imgs, high, dev, tids=[0, 1, 2, 3]), high)
+    cis_l = PT.encode_pipeline_torch_batch(imgs, lossless, dev)
+    mixed = [cis_h[0], cis_l[1], cis_h[2], cis_l[3]]
+    outs = PT.decode_pipeline_torch_batch(mixed, dev)
+    sync(dev)
+    for n, k in read_counts(label, 2, 1, waves).items():
+        totals[n] += k
+    if [serialize(c) for c in cis_h] != solo_h or [serialize(c) for c in cis_l] != solo_l:
+        raise AssertionError(f"{label}: a batch container differs from its one-image container")
+    if [c.transform for c in cis_h] != [0, 1, 2, 3]:
+        raise AssertionError(f"{label}: the forced transform ids did not reach the containers")
+    for i, (ci, out) in enumerate(zip(mixed, outs)):
+        if not np.array_equal(out.data, PT.decode_pipeline_torch(ci, dev).data):
+            raise AssertionError(f"{label}: image {i}'s batch decode differs from its own")
+        if np.array_equal(out.data, px[i]) != (i % 2 == 1):
+            raise AssertionError(f"{label}: image {i} decodes to the input iff lossless, not so")
+    print(f"main {label}: HIGH with transforms [0, 1, 2, 3], LOSSLESS with "
+          f"{[c.transform for c in cis_l]}; the mixed decode batch (HIGH, LOSSLESS, HIGH, "
+          f"LOSSLESS) gives each image's own decode, the lossless ones the input")
+    for i, q in ((2, EncoderQuality.HIGH), (1, EncoderQuality.LOSSLESS)):
+        oracle_checks(f"{label} image {i}", px[i], serialize(mixed[i]), outs[i].data, q, oracle)
+
+
+def path_d_stream(dev, totals: dict) -> dict:
+    """The CORPUS-image stream round trip in batches of BATCH (bench.py's
+    headline corpus): with device_verify the mismatch count is 0 and the
+    launch counts exact; timed with and without device_verify (the
+    decoded images are then each its input)."""
+    label = f"d {CORPUS}-image stream round trip"
+    px = [natural_image(*GRAY, 1, seed) for seed in range(CORPUS)]
+    imgs = [RasterImage.from_array(p) for p in px]
+    opts = EncoderOptions()
+    batches = -(-CORPUS // BATCH)
+    zero_counts()
+    blobs, mism = PT.roundtrip_pipeline_torch_stream(imgs, opts, BATCH, dev, device_verify=True)
+    sync(dev)
+    for n, k in read_counts(label, batches, batches,
+                             batches * kernel_check.grid_shapes(*GRAY, 1)["waves"]).items():
+        totals[n] += k
+    if mism != 0 or len(blobs) != CORPUS:
+        raise AssertionError(f"{label}: {mism} mismatches over {len(blobs)} containers")
+    _, outs = PT.roundtrip_pipeline_torch_stream(imgs, opts, BATCH, dev)
+    for i, (p, o) in enumerate(zip(px, outs)):
+        if not np.array_equal(o.data, p):
+            raise AssertionError(f"{label}: image {i} does not come back")
+    print(f"main {label}: {CORPUS} containers, device_verify 0 mismatches; without it every "
+          "image comes back")
+    mp = CORPUS * GRAY[0] * GRAY[1] / 1e6
+    out = {}
+    for verify in (True, False):
+        secs = sync_times(lambda: PT.roundtrip_pipeline_torch_stream(
+            imgs, opts, BATCH, dev, device_verify=verify), dev, runs=3)
+        print(f"report {label} (batch_size {BATCH}, device_verify {verify}): "
+              + rate_line("", mp, secs))
+        out[verify] = float(np.median([mp / t for t in secs]))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -474,27 +674,28 @@ def main() -> int:
     }
     preset_label, preset_px = "512x512 gray", natural_image(512, 512, 1, seed=3)
     big_label, big_px = "2048x2048 RGB", natural_image(2048, 2048, 3, seed=4)
-    for label, px in {**images, preset_label: preset_px}.items():
+    for label, px in {**images, preset_label: preset_px, big_label: big_px}.items():
         h, w, c, seed, _ = REF_IMAGES[label]
         if not np.array_equal(px, natural_image(h, w, c, seed)):
             raise AssertionError(f"{label}: not the image the reference hashes were made from")
     all_images = {**images, preset_label: preset_px, big_label: big_px}
-    shapes = {label: grid_shapes(*px.shape) for label, px in images.items()}
-    shapes[preset_label] = grid_shapes(*preset_px.shape)
+    shapes = {label: kernel_check.grid_shapes(*px.shape) for label, px in images.items()}
+    shapes[preset_label] = kernel_check.grid_shapes(*preset_px.shape)
     t = time.perf_counter()
-    shapes[big_label] = grid_shapes(*big_px.shape)
+    shapes[big_label] = kernel_check.grid_shapes(*big_px.shape)
     print(f"host schedule and geometry {big_label}: {time.perf_counter() - t:.3f} s "
           "(cached: the first call below does not rebuild them)")
-    # (shape, problem kind, timed, cluster sizes): every kernel at the
-    # shapes each image gives it at the default lane count, timed; the last
-    # timed shape of each kernel (2048x2048 RGB) is the one the kernels line
-    # reports; decode_scan_wave at every cluster size it can run
+    # (shape, problem kind, timed, cluster sizes, images): every kernel at
+    # the shapes each image gives it at the default lane count, timed;
+    # decode_scan_wave at every cluster size it can run; the last timed
+    # shape of each kernel (the batch below) is the one the kernels line
+    # reports
     plan = {name: [] for name in kernel_check.KERNELS}
     plan["decode_scan_wave"] = [
-        (sh, k, False, CLUSTERS)
+        (sh, k, False, CLUSTERS, 0)
         for sh in ((138, 1, 512), (60, 3, 2048), (30, 3, 16384), (4, 3, 32768))
         for k in kernel_check.DECODE_KINDS
-    ] + [((40, 1, 512), "valid", True, CLUSTERS)]  # a small one-block wave, timed
+    ] + [((40, 1, 512), "valid", True, CLUSTERS, 0)]  # a small one-block wave, timed
     for label, px in all_images.items():
         sh = shapes[label]
         # kernels A and B on the image's own program, every transform id at
@@ -503,12 +704,28 @@ def main() -> int:
         tids = range(4) if px.shape[2] == 3 else (0,)
         for q in kernel_check.QDIV_KINDS[::-1]:
             for tid in tids:
-                plan["forward_lift_quantize_pixels"].append((px.shape, (tid, q), True, (0,)))
+                plan["forward_lift_quantize_pixels"].append((px.shape, (tid, q), True, (0,), 0))
         for tid in tids:
-            plan["dequantize_inverse_lift_pixels"].append((px.shape, tid, True, (0,)))
-        plan["encode_scan"].append((sh["grid"], None, True, (0,)))
-        plan["decode_scan_wave"].append((sh["wave"], "garbage", False, CLUSTERS))
-        plan["decode_scan_wave"].append((sh["wave"], "valid", True, CLUSTERS))
+            plan["dequantize_inverse_lift_pixels"].append((px.shape, tid, True, (0,), 0))
+        plan["encode_scan"].append((sh["grid"], None, True, (0,), 0))
+        plan["decode_scan_wave"].append((sh["wave"], "garbage", False, CLUSTERS, 0))
+        plan["decode_scan_wave"].append((sh["wave"], "valid", True, CLUSTERS, 0))
+    # whole batches in one launch: 768x512 RGB at B = 4 and kernel 3 with
+    # more clusters than are resident, untimed; then 256x256 gray at
+    # B = 64, bench.py's batch, timed last (the kernels line reports it)
+    for (h, w, c), nimg, timed in (((512, 768, 3), 4, False), ((*GRAY, 1), BATCH, True)):
+        sh = kernel_check.grid_shapes(h, w, c)
+        plan["forward_lift_quantize_pixels"].append(((h, w, c), (1, "lossless"), timed, (0,), nimg))
+        plan["dequantize_inverse_lift_pixels"].append(((h, w, c), 0, timed, (0,), nimg))
+        plan["encode_scan"].append((sh["grid"], None, timed, (0,), nimg))
+        if not timed:
+            plan["decode_scan_wave"] += [(sh["wave"], k, False, (0,), nimg)
+                                         for k in kernel_check.DECODE_KINDS]
+            # garbage waves (cheap to draw; tests/test_torch_cuda.py has the
+            # valid ones) of 12 images, more 16-block clusters than resident
+            plan["decode_scan_wave"].append(((30, 3, 16384), "garbage", False, (0, 16), 12))
+        else:
+            plan["decode_scan_wave"].append((sh["wave"], "valid", True, (0,), nimg))
     for label, px in all_images.items():
         t = time.perf_counter()
         kernel_check.program(*px.shape, dev)
@@ -516,10 +733,11 @@ def main() -> int:
               "(kernel B's checks and the main path share it)")
     checks = {}
     run_checks(plan, dev, checks)
-    for label, px in all_images.items():
-        sweep = kernel_check.lift_head_tiles_ms(px.shape, dev)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        rule = L.forward_lift_plan(px.shape[2], get_geometry(*px.shape[:2]).num_tiles, sms)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, shape, nimg in [(label, px.shape, 0) for label, px in all_images.items()] + [
+            (f"{BATCH}x 256x256 gray", (*GRAY, 1), BATCH)]:
+        sweep = kernel_check.lift_head_tiles_ms(shape, dev, images=nimg)
+        rule = L.forward_lift_plan(shape[2], get_geometry(*shape[:2]).num_tiles, sms, max(nimg, 1))
         print(f"kernel forward_lift_quantize_pixels {label} device ms by tiles a block, each "
               f"bit-equal to the plain version (rule: {rule}): "
               + json.dumps({str(k): round(ms, 4) for k, ms in sweep.items()}))
@@ -551,7 +769,7 @@ def main() -> int:
         runs[label] = (blob, te, td, out)
     waves = reps * sum(shapes[label]["waves"] for label in images)
     trips = reps * len(images)
-    for n, k in read_counts("lossless 256x256 gray + 768x512 RGB", waves, trips).items():
+    for n, k in read_counts("lossless 256x256 gray + 768x512 RGB", trips, trips, waves).items():
         totals[n] += k
     peak = torch.cuda.max_memory_allocated(dev)
 
@@ -616,7 +834,7 @@ def main() -> int:
         preset_runs[q] = timed_round_trips(f"{preset_label} {q.name}", preset_px, opts, reps, dev)
     waves = reps * len(presets) * shapes[preset_label]["waves"]
     trips = reps * len(presets)
-    for n, k in read_counts(f"{preset_label} HIGH/MEDIUM/LOW", waves, trips).items():
+    for n, k in read_counts(f"{preset_label} HIGH/MEDIUM/LOW", trips, trips, waves).items():
         totals[n] += k
     for q, opts in presets.items():
         label = f"{preset_label} {q.name}"
@@ -637,16 +855,23 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     big_blob, big_out, big_te, big_td = timed_round_trips(big_label, big_px, lossless, reps, dev)
     big_peak = torch.cuda.max_memory_allocated(dev)
-    for n, k in read_counts(big_label, reps * shapes[big_label]["waves"], reps).items():
+    for n, k in read_counts(big_label, reps, reps, reps * shapes[big_label]["waves"]).items():
         totals[n] += k
     print(f"main {big_label}: lossless; {shapes[big_label]['waves']} decode_scan_wave "
           f"launches per decode ({len(big_blob)} B, "
           f"{8.0 * len(big_blob) / (2048 * 2048):.4f} bpp)")
     same_lanes(big_label, shapes[big_label], big_blob)
     oracle_checks(big_label, big_px, big_blob, big_out, EncoderQuality.LOSSLESS, oracle)
-    print(f"main {big_label}: no reference hash (no full-size jax encode on a CPU host); "
-          "the oracle checks stand alone")
+    for entry in refs:
+        if entry["label"] == big_label:
+            compare_ref(entry, big_px, oracle)
     print(f"phase main 2048x2048 done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 3d. the batch surface
+    path_d_gray(dev, totals)
+    path_d_rgb(dev, totals, oracle)
+    path_d_stream(dev, totals)
+    print(f"phase main batches done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 4. report
     rows = [(label, px, runs[label][1], runs[label][2], lossless) for label, px in images.items()]
@@ -694,7 +919,8 @@ def main() -> int:
                  "launches": totals[name],
                  "max_abs_err": max(r["max_abs_err"] for r in rs),
                  "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
-                 "bound_by": "bytes", "library_ms": None, "shape": at["shape"]}
+                 "bound_by": "bytes", "library_ms": None, "shape": at["shape"],
+                 "images": at["images"]}
         if name == "decode_scan_wave":
             entry["cluster"] = at["cluster"]
         kernels.append(entry)

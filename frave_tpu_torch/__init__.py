@@ -19,6 +19,22 @@ Public API (grid mode, the default of ``EncoderOptions``)::
 ``opts`` is the port's own ``EncoderOptions``, the image a numpy array or
 the port's ``RasterImage``.
 
+Same-shape batches (one launch of each kernel for the whole batch) and
+the host/device-pipelined drivers over many images::
+
+    cis = encode_pipeline_torch_batch(images, opts, device="cuda")
+    cis = encode_pipeline_torch_stream(images, opts, batch_size=8, device="cuda")
+    outs = decode_pipeline_torch_batch(cis, device="cuda")
+    outs = decode_pipeline_torch_stream(cis, batch_size=8, device="cuda")
+    blobs, outs = roundtrip_pipeline_torch_stream(images, opts, batch_size=8,
+                                                  device="cuda", device_verify=False)
+
+``images`` are RasterImages of one shape and colorspace, ``cis``
+CompressedImages (``codec.container.serialize`` / ``deserialize`` turn
+them into bytes and back); with ``device_verify=True`` the round trip
+compares the decoded pixels with the input on the card and returns the
+mismatch count instead of the images.
+
 ``device="cpu"`` runs every kernel's plain PyTorch version instead (the
 tests use it); ``device="cuda"`` without CUDA raises.
 """
@@ -26,6 +42,13 @@ tests use it); ``device="cuda"`` without CUDA raises.
 from .codec.decoder import FRIDecoder, decode
 from .codec.encoder import FRIEncoder, encode
 from .codec.options import EncoderOptions, EncoderQuality
+from .codec.pipeline_torch import (
+    decode_pipeline_torch_batch,
+    decode_pipeline_torch_stream,
+    encode_pipeline_torch_batch,
+    encode_pipeline_torch_stream,
+    roundtrip_pipeline_torch_stream,
+)
 from .images import RasterImage
 
 __all__ = [
@@ -36,4 +59,9 @@ __all__ = [
     "FRIDecoder",
     "encode",
     "decode",
+    "encode_pipeline_torch_batch",
+    "encode_pipeline_torch_stream",
+    "decode_pipeline_torch_batch",
+    "decode_pipeline_torch_stream",
+    "roundtrip_pipeline_torch_stream",
 ]

@@ -15,6 +15,12 @@ TPU's packed 10-bit u32 (RGB) / int16 (gray) planes, and each wave's
 rANS rows are one ops/rans_torch.decode_scan_wave call (kernel 3 on the
 card: an integer cdf search and a block scan for the word ranks) instead
 of the XLA scan of bf16 one-hot staircase steps.
+
+Both take a same-shape batch (the JAX program's vmap over B): every stage
+whose channels are independent runs over B*C rows (the tap planes,
+contexts, fits and tables take any leading row count), and what is per
+image keeps its [B] axis (the streams and their positions, the lane
+states, qdiv and the transform ids).
 """
 
 from __future__ import annotations
@@ -215,9 +221,12 @@ def _to_grid(wd: WaveDev, values: torch.Tensor, base=None) -> torch.Tensor:
 
 def build_grid_decode(prog, geo, waves: List[WaveDev]):
     """The dense decode for a grid-mode CodecProgram. Returns
-    decode(states, stream, wire_bits, offpk, scales, vparams, wparams,
-    qdiv, tid) -> pixels [C, HW] uint8 (all tensors on the program's
-    device)."""
+    decode(states [B, C, NL] int64, stream [B, W] int32, wire_bits
+    [B, C, CA], offpk [B, C, CA, 32], scales [B, C, CA], vparams / wparams
+    [B, C, F, 6] f32, qdiv [B, 512] int32, tids [B] int32) -> pixels
+    [B, C, HW] uint8 (all tensors on the program's device): one
+    decode_scan_wave launch per non-empty wave and one kernel B launch for
+    the whole batch."""
     n_slots = prog.n_slots
     C = prog.channels
     nl = prog.nl
@@ -228,14 +237,16 @@ def build_grid_decode(prog, geo, waves: List[WaveDev]):
     dev = prog.device
     shifts32 = torch.arange(32, device=dev, dtype=_I64)
 
-    def decode(states, stream, wire_bits, offpk, scpk, vparams, wparams, qdiv, tid,
+    def decode(states, stream, wire_bits, offpk, scpk, vparams, wparams, qdiv, tids,
                stages=None):
+        B = states.shape[0]
+        BC = B * C
         # --- wire tables (context_from_wire twin: zero hist, wire bits,
-        # wire off-mask, wire scale indices)
+        # wire off-mask, wire scale indices), [B, C, ...]
         off_mask = (((offpk[..., None] >> shifts32) & 1) > 0).reshape(
-            C, CONTEXT_AMOUNT, ALPHABET_SIZE
+            B, C, CONTEXT_AMOUNT, ALPHABET_SIZE
         )
-        zero_hist = torch.zeros((C, CONTEXT_AMOUNT, ALPHABET_SIZE), dtype=_I64, device=dev)
+        zero_hist = torch.zeros((B, C, CONTEXT_AMOUNT, ALPHABET_SIZE), dtype=_I64, device=dev)
         bits, _, cdfs, _ = finalize_contexts_device(
             zero_hist, prog.lap, bits0=wire_bits, off_mask_in=off_mask,
             scale_idx=scpk,
@@ -244,41 +255,48 @@ def build_grid_decode(prog, geo, waves: List[WaveDev]):
         if stages is not None:
             stages.mark("decode/tables")
 
+        # the fits of every (image, channel) row
+        vparams = vparams.reshape((BC,) + vparams.shape[2:])
+        wparams = wparams.reshape((BC,) + wparams.shape[2:])
         x = states
-        gptr = torch.zeros((), dtype=_I64, device=dev)
-        # [C, n_slots]: rows 16-byte aligned for kernel B's vector loads
-        qplane = torch.zeros((C, n_slots), dtype=torch.int32, device=dev)
+        gptr = torch.zeros((B,), dtype=_I64, device=dev)
+        # [B, C, n_slots] (n_slots = 512 T: rows 16-byte aligned for kernel
+        # B's vector loads), written through its [B*C, n_slots] view
+        qplane = torch.zeros((B, C, n_slots), dtype=torch.int32, device=dev)
+        qrows = qplane.view(BC, n_slots)
 
         def scan_wave(wd, buckets, preds, x, gptr):
+            """The wave's rows for [B*C, kw] buckets and predictions ->
+            values [B*C, kw]; one decode_scan_wave launch for the batch."""
             if wd.rows == 0:
-                return preds.new_zeros((C, 0)), x, gptr
+                return preds.new_zeros((BC, 0)), x, gptr
             pad = wd.rows * nl - wd.kw
             bk = torch.nn.functional.pad(buckets.to(torch.int32), (0, pad))
-            bk = bk.reshape(C, wd.rows, nl).permute(1, 0, 2).contiguous()  # [rows, C, NL]
+            bk = bk.reshape(B, C, wd.rows, nl).transpose(1, 2).contiguous()  # [B, rows, C, NL]
             syms, x, gptr = decode_scan_wave(x, gptr, bk, wd.active_rows, stream, tabs)
-            syms = syms.permute(1, 0, 2).reshape(C, wd.rows * nl)[:, : wd.kw]
+            syms = syms.transpose(1, 2).reshape(BC, wd.rows * nl)[:, : wd.kw]
             values = (T.unpack_signed(syms) + preds).to(torch.int32)
             return values, x, gptr
 
         # wave 0 (DC phase A: context-free) + wave 1 (phase B)
         w0, w1, w2 = waves[0], waves[1], waves[2]
-        z = torch.zeros((C, w0.kw, 6), dtype=torch.int32, device=dev)
+        z = torch.zeros((BC, w0.kw, 6), dtype=torch.int32, device=dev)
         bk0, pr0 = _wave_contexts(w0, z, vparams, wparams)
         v0, x, gptr = scan_wave(w0, bk0, pr0, x, gptr)
-        qplane[:, w0.wslot] = v0
+        qrows[:, w0.wslot] = v0
         dcA = _to_grid(w0, v0)
 
         planes = _tap_planes(w1, dcA, None)
         bk1, pr1 = _wave_contexts(w1, _pack_tap_vals(w1, planes), vparams, wparams)
         v1, x, gptr = scan_wave(w1, bk1, pr1, x, gptr)
-        qplane[:, w1.wslot] = v1
+        qrows[:, w1.wslot] = v1
         dc = _to_grid(w1, v1, base=dcA)
 
         # wave 2 (root-HF: taps = neighbour DC values)
         planes = _tap_planes(w2, dc, None)
         bk2, pr2 = _wave_contexts(w2, _pack_tap_vals(w2, planes), vparams, wparams)
         v2, x, gptr = scan_wave(w2, bk2, pr2, x, gptr)
-        qplane[:, w2.wslot] = v2
+        qrows[:, w2.wslot] = v2
 
         # HF levels: parent broadcast -> shifts -> rows
         parent = _to_grid(w2, v2)
@@ -287,16 +305,16 @@ def build_grid_decode(prog, geo, waves: List[WaveDev]):
             planes = _tap_planes(wd, pv, parent)
             bk, pr = _wave_contexts(wd, _pack_tap_vals(wd, planes), vparams, wparams)
             vv, x, gptr = scan_wave(wd, bk, pr, x, gptr)
-            qplane[:, wd.wslot] = vv
+            qrows[:, wd.wslot] = vv
             parent = _to_grid(wd, vv)
         if stages is not None:
             stages.mark("decode/waves")
 
         # dequantize + inverse lifting, clamp, inverse transform and the
-        # pixel scatter: kernel B, on the coefficient plane where it lies
+        # pixel scatter of every image: kernel B, on the planes where they lie
         out = dequantize_inverse_lift_pixels(
             qplane, prog.node_mask_u8, prog.leaf_mask_u8, qdiv, prog.leaf_pix,
-            prog.pix_inv, tid,
+            prog.pix_inv, tids,
         )
         if stages is not None:
             stages.mark("decode/pixels")
@@ -310,8 +328,10 @@ def build_grid_encode(prog, geo, sched, waves: List[WaveDev]):
     tap planes from shifts of the known coefficient plane in wave order,
     predictor fits on a subsample of at most FRAVE_FIT_CAP cells per wave,
     contexts evaluated on the dense grid. Returns
-    stats(qplane [C, n_slots + 1] int32, overrides) ->
-    (vparams [C, F, 6] f32, wparams, buckets [C, K], symbols [C, K])."""
+    stats(qplane [rows, n_slots + 1] int32, overrides) ->
+    (vparams [rows, F, 6] f32, wparams, buckets [rows, K], symbols
+    [rows, K]), rows the B*C (image, channel) rows of a batch; `overrides`
+    as fit_predictors takes them, [rows, F, 6]."""
     from .pipeline_torch import fit_predictors
 
     n_slots = prog.n_slots

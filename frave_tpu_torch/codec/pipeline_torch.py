@@ -1,5 +1,13 @@
 """The codec's device pipeline in PyTorch: the port of
-frave_tpu/codec/pipeline_jax.py, grid mode, one image (B=1).
+frave_tpu/codec/pipeline_jax.py, grid mode, over same-shape batches.
+
+A batch is the JAX package's: images of one shape and colorspace, each
+with its own channel transform (and, on decode, its own quantizer), one
+EncoderOptions per encode batch. Every device stage whose channels are
+independent runs over the B*C (image, channel) rows; what is per image
+(the stream, its total and position, the transform ids, qdiv on decode,
+the header row) keeps a leading [B] axis. Each of the four kernels takes
+the whole batch in one launch. The one-image calls are batches of one.
 
 Encode (CodecProgram.encode_exec): channel transform, leaf gather,
 forward lifting + quantize (one launch, kernel A) -> statistics (the step-tensor
@@ -7,8 +15,8 @@ gather below K = 2^18 symbols, the dense shift-plane path of
 grid_decode.build_grid_encode from there up) -> Gram/Cholesky predictor
 fits rounded to the f16 wire values -> contexts and zig-zag symbols ->
 exact histogram -> context tables -> reverse rANS scan (kernel C) ->
-stream compaction -> one packed int32 vector (headers + stream) that the
-host unpacks into a container.
+stream compaction per image -> one packed int32 row per image (headers +
+stream) that the host unpacks into a container.
 
 Decode (CodecProgram.decode_exec): table regeneration -> per wave: tap
 planes, contexts, the rANS rows (kernel 3) -> dequantize + inverse
@@ -18,6 +26,14 @@ Everything the JAX program uploads once per shape (geometry gathers,
 masks, schedule tensors, Laplace grid, wave plans) is built from the same
 numpy host structures (the port's copies of frave_tpu's host modules)
 and kept on the program's device.
+
+The _stream drivers overlap the host's work on one batch (fetch, unpack,
+serialize) with the device's on the next: uploads go through pinned host
+memory as non_blocking copies on the current stream, and every fetch runs
+on a side CUDA stream that waits only for the event recorded after its
+own batch, so it never waits behind work queued later. The host blocks
+only on those fetches: each batch's headers, then its stream prefix (two
+per encode batch), its pixels or mismatch count (one per decode batch).
 """
 
 from __future__ import annotations
@@ -26,7 +42,8 @@ import dataclasses
 import os
 import threading
 import time
-from typing import Dict
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -46,11 +63,13 @@ from ..ops import torch_ops as T
 from ..ops.lifting import forward_lift_quantize_pixels
 from ..ops.rans_torch import encode_scan, pack_u16_pairs, row_map, stream_compact_grid
 from .channel_transform import choose_transform
+from .container import deserialize, serialize
 from .options import EncoderOptions, quantization_matrix
 
 _I64 = torch.int64
 _I32 = torch.int32
 _F32 = torch.float32
+_F64 = torch.float64
 # per channel: bits [CA] + off bitmask [CA, 32] + Laplace-grid scales [CA]
 _HDR_TABLES = CONTEXT_AMOUNT + CONTEXT_AMOUNT * (ALPHABET_SIZE // 32) + CONTEXT_AMOUNT
 # the statistics gate of the JAX program: the dense shift-plane path from
@@ -75,7 +94,7 @@ def resolve_device(device) -> torch.device:
 
 
 class StageTimes:
-    """Optional per-stage wall times (ms) of one encode or decode: each
+    """Optional per-stage wall times (ms) of one encode or decode batch: each
     mark() synchronises the device and charges the time since the last
     mark to its stage. Costs one synchronisation per stage when passed,
     nothing when not."""
@@ -133,8 +152,8 @@ def _gram_solve(G: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _width_feats(Xs: torch.Tensor) -> torch.Tensor:
-    """Width-model design features over tap values [..., 6] f32: bias +
-    the 5 gradient magnitudes."""
+    """Width-model design features over tap values [..., 6]: bias + the 5
+    gradient magnitudes."""
     return torch.stack(
         [
             torch.ones_like(Xs[..., 0]),
@@ -149,21 +168,30 @@ def _width_feats(Xs: torch.Tensor) -> torch.Tensor:
 
 
 def fit_predictors(Xs_l, ys_l, overrides):
-    """Per-group predictor fits: Xs_l / ys_l are per-group tap values
-    [C, k_g, 6] and targets [C, k_g] (f32). Value parameters by least
-    squares, rounded to the f16 wire values; width parameters fitted to
-    the |residuals| of those rounded values. `overrides` = (vp [C, F, 6],
-    wp, use_w) tensors pin the parameters instead (the width fit still
-    runs when only the value parameters are pinned). Returns (vparams,
-    wparams) [C, F, 6] f32 — ONE tensor each, read by both the symbol math
-    and the wire header. float32 matmuls run in full f32 (TF32 off)."""
+    """Per-group predictor fits of every row: Xs_l / ys_l are per-group
+    tap values [rows, k_g, 6] and targets [rows, k_g] (integer values), a
+    row one (image, channel) of a batch. Value parameters by least squares,
+    rounded to the f16 wire values; width parameters fitted to the
+    |residuals| of those rounded values. `overrides` = (vp [rows, F, 6],
+    wp, use_w) tensors pin the parameters instead (the width fit still runs
+    when only the value parameters are pinned). Returns (vparams, wparams)
+    [rows, F, 6] f32 — ONE tensor each, read by both the symbol math and
+    the wire header.
+
+    The sums and solves run in float64 and round to f32 at the end: the
+    value Grams of integer taps are exact there (the width Grams all but
+    exact), so a row's fit does not depend on the order in which a library
+    sums, which on the card follows the batch's row count. An image's fit
+    is therefore the same alone and in any batch."""
     vp_ovr, wp_ovr, use_w = overrides if overrides is not None else (None, None, False)
+    Xs_l = [X.to(_F64) for X in Xs_l]
+    ys_l = [y.to(_F64) for y in ys_l]
     if vp_ovr is None:
         G = torch.stack([torch.einsum("ckx,cky->cxy", X, X) for X in Xs_l], dim=1)
         bv = torch.stack(
             [torch.einsum("ckx,ck->cx", X, y) for X, y in zip(Xs_l, ys_l)], dim=1
         )
-        vparams = _gram_solve(G, bv)
+        vparams = _gram_solve(G, bv).to(_F32)
     else:
         vparams = vp_ovr
     vparams = T.f16_wire_round(vparams)
@@ -172,18 +200,19 @@ def fit_predictors(Xs_l, ys_l, overrides):
     else:
         Gws, bws = [], []
         for g, (X, y) in enumerate(zip(Xs_l, ys_l)):
-            pred = torch.einsum("ckx,cx->ck", X, vparams[:, g])
+            pred = torch.einsum("ckx,cx->ck", X, vparams[:, g].to(_F64))
             rg = torch.abs(y - pred)
             Fs = _width_feats(X)
             Gws.append(torch.einsum("ckx,cky->cxy", Fs, Fs))
             bws.append(torch.einsum("ckx,ck->cx", Fs, rg))
-        wparams = _gram_solve(torch.stack(Gws, dim=1), torch.stack(bws, dim=1))
+        wparams = _gram_solve(torch.stack(Gws, dim=1), torch.stack(bws, dim=1)).to(_F32)
     return vparams, T.f16_wire_round(wparams)
 
 
 class CodecProgram:
     """The codec for one (height, width, num_lanes, channels) on one
-    device, grid mode. Build with CodecProgram.from_host."""
+    device, grid mode, over same-shape batches of any size. Build with
+    CodecProgram.from_host."""
 
     @classmethod
     def from_host(cls, height: int, width: int, nl: int, channels: int, device):
@@ -275,9 +304,10 @@ class CodecProgram:
             self.grid_enc = build_grid_encode(self, geo, sched, waves)
         return self
 
-    def _overrides(self, overrides):
-        """EncoderOptions.prediction_overrides(C) -> device tensors
-        (3-row legacy sets expand to the fine ids)."""
+    def _overrides(self, overrides, images: int):
+        """EncoderOptions.prediction_overrides(C) -> device tensors [B*C,
+        F, 6], shared by the batch's `images` images (3-row legacy sets
+        expand to the fine ids)."""
         if overrides is None:
             return None
         vp_np, wp_np, use_w = overrides
@@ -289,57 +319,70 @@ class CodecProgram:
                 p = p[..., self.legacy_of_fine, :]
             if p.shape[-2:] != (F, 6):
                 raise ValueError(f"override params must have 3 or {F} rows")
-            return torch.as_tensor(np.ascontiguousarray(p), device=self.device)
+            return _upload([p], self.device)[0].repeat(images, 1, 1)
 
         return exp(vp_np), exp(wp_np), bool(use_w)
 
     def _step_stats(self, qplane, overrides):
-        """The step-tensor statistics: one bulk neighbour gather, per-group
-        fits over static schedule ranges, per-symbol contexts."""
-        vals = qplane[:, self.snbr_safe]  # [C, K, 6]
-        target = qplane[:, self.sc]  # [C, K]
-        Xs_l = [vals[:, lo:hi].to(_F32) for lo, hi in self.group_ranges]
-        ys_l = [target[:, lo:hi].to(_F32) for lo, hi in self.group_ranges]
+        """The step-tensor statistics of qplane [rows, n_slots + 1], a row
+        one (image, channel): one bulk neighbour gather, per-group fits
+        over static schedule ranges, per-symbol contexts."""
+        vals = qplane[:, self.snbr_safe]  # [rows, K, 6]
+        target = qplane[:, self.sc]  # [rows, K]
+        Xs_l = [vals[:, lo:hi] for lo, hi in self.group_ranges]
+        ys_l = [target[:, lo:hi] for lo, hi in self.group_ranges]
         vparams, wparams = fit_predictors(Xs_l, ys_l, overrides)
         buckets, preds = T.contexts(vals, self.slf, self.sgrp, vparams, wparams)
         buckets = torch.where(self.sfbkt >= 0, self.sfbkt.to(buckets.dtype), buckets)
         return vparams, wparams, buckets, T.pack_signed(target - preds)
 
-    def encode_exec(self, pixels, qdiv, overrides=None, tid: int = 0, stages=None):
-        """pixels [HW, C] uint8 on the device, qdiv [N] int32 -> (packed
-        [hdr_words + ceil(K*C/2)] int32, hist [C, CA, 1024] int32), the layout of
-        pipeline_jax's encode output: per channel vparams, wparams (f32
-        bits), bits, off-list bitmask, scale indices, lane states,
-        expected code length (f32 bits); then the stream total and the
-        u16 stream packed in pairs."""
+    def encode_exec(self, pixels, qdiv, overrides=None, tids=None, stages=None):
+        """pixels [B, HW, C] uint8 on the device, qdiv [512] int32, tids [B]
+        int32 channel-transform ids on the device (None: 0) -> (packed
+        [B, hdr_words + ceil(K*C/2)] int32, hist [B, C, CA, 1024] int32),
+        the layout of pipeline_jax's encode output: per image and channel
+        vparams, wparams (f32 bits), bits, off-list bitmask, scale indices,
+        lane states, expected code length (f32 bits); then the image's
+        stream total and its u16 stream packed in pairs. `overrides` pin
+        the parameters of every image of the batch. One launch each of
+        kernels A and C for the batch."""
+        B = pixels.shape[0]
         C = self.channels
+        BC = B * C
         dev = self.device
+        if tids is None:
+            tids = torch.zeros((B,), dtype=_I32, device=dev)
         if stages is not None:
             stages.start()
         # channel transform, leaf gather, lifting, quantize and the zero
-        # slot: kernel A -> [C, n_slots + 1]
-        qplane = forward_lift_quantize_pixels(pixels, self.leaf_pix, qdiv, tid)
+        # slot of every image: kernel A -> [B, C, n_slots + 1], statistics
+        # over its [B*C, n_slots + 1] rows (a view)
+        qplane = forward_lift_quantize_pixels(pixels, self.leaf_pix, qdiv, tids)
+        rows = qplane.reshape(BC, qplane.shape[-1])
         if stages is not None:
             stages.mark("encode/lift")
-        ovr = self._overrides(overrides)
+        ovr = self._overrides(overrides, B)
         if self.grid_enc is not None:
-            vparams, wparams, buckets, symbols = self.grid_enc(qplane, ovr)
+            vparams, wparams, buckets, symbols = self.grid_enc(rows, ovr)
         else:
-            vparams, wparams, buckets, symbols = self._step_stats(qplane, ovr)
+            vparams, wparams, buckets, symbols = self._step_stats(rows, ovr)
         if stages is not None:
             stages.mark("encode/stats")
 
         # schedule order, as kernel C reads them
         buckets = buckets.to(_I32).contiguous()
         symbols = symbols.to(_I32).contiguous()
-        # exact histogram of (channel, bucket, symbol)
-        chan = torch.arange(C, device=dev, dtype=_I64)[:, None]
-        ids = (chan * CONTEXT_AMOUNT + buckets.to(_I64)) * ALPHABET_SIZE + torch.clamp(
+        # exact histogram of (row, bucket, symbol), into a buffer of known
+        # size (bincount would read the largest id back to size its output)
+        row = torch.arange(BC, device=dev, dtype=_I64)[:, None]
+        ids = (row * CONTEXT_AMOUNT + buckets.to(_I64)) * ALPHABET_SIZE + torch.clamp(
             symbols.to(_I64), 0, ALPHABET_SIZE - 1
         )
-        hist = torch.bincount(
-            ids.reshape(-1), minlength=C * CONTEXT_AMOUNT * ALPHABET_SIZE
-        ).reshape(C, CONTEXT_AMOUNT, ALPHABET_SIZE)
+        ids = ids.reshape(-1)
+        hist = torch.zeros(BC * CONTEXT_AMOUNT * ALPHABET_SIZE, dtype=_I64, device=dev)
+        hist = hist.index_add_(0, ids, torch.ones_like(ids)).reshape(
+            B, C, CONTEXT_AMOUNT, ALPHABET_SIZE
+        )
         scales = select_scales_device(hist, self.glog2, self.gzero)
         bits, freqs, cdfs, off_mask = finalize_contexts_device(hist, self.lap, scale_idx=scales)
         # expected code length under the finalized tables (f32 per channel)
@@ -348,48 +391,51 @@ class CodecProgram:
             hist > 0,
             hf * (bits.to(_F32)[..., None] - torch.log2(torch.clamp(freqs.to(_F32), min=1.0))),
             torch.zeros((), dtype=_F32, device=dev),
-        ).sum(dim=(1, 2))
+        ).sum(dim=(2, 3))
         if stages is not None:
             stages.mark("encode/tables")
 
+        K = self.num_symbols
         states, words, flags = encode_scan(
-            symbols, buckets, self.row_k0, self.row_len,
+            symbols.view(B, C, K), buckets.view(B, C, K), self.row_k0, self.row_len,
             freqs.to(_I32), cdfs.to(_I32), bits.to(_I32), self.nl,
         )
         if stages is not None:
             stages.mark("encode/rans")
-        stream, total = stream_compact_grid(words, flags, self.kc)
-        spk = pack_u16_pairs(stream)  # [ceil(K*C/2)]
-        om = off_mask.reshape(C, CONTEXT_AMOUNT, ALPHABET_SIZE // 32, 32).to(_I64)
+        stream, total = stream_compact_grid(words, flags, self.kc)  # [B, K*C], [B]
+        spk = pack_u16_pairs(stream)  # [B, ceil(K*C/2)]
+        om = off_mask.reshape(B, C, CONTEXT_AMOUNT, ALPHABET_SIZE // 32, 32).to(_I64)
         ompk = (om << torch.arange(32, device=dev, dtype=_I64)).sum(-1)
         headers = torch.cat(
             [
-                vparams.contiguous().view(_I32).reshape(C, -1),
-                wparams.contiguous().view(_I32).reshape(C, -1),
+                vparams.contiguous().view(_I32).reshape(B, C, -1),
+                wparams.contiguous().view(_I32).reshape(B, C, -1),
                 bits.to(_I32),
-                _u32_to_i32(ompk).reshape(C, -1),
+                _u32_to_i32(ompk).reshape(B, C, -1),
                 scales.to(_I32),
                 _u32_to_i32(states),
-                exp_bits.contiguous().view(_I32)[:, None],
+                exp_bits.contiguous().view(_I32)[..., None],
             ],
-            dim=1,
+            dim=2,
         )
-        packed = torch.cat([headers.reshape(-1), total.to(_I32).reshape(1), spk])
+        packed = torch.cat([headers.reshape(B, -1), total.to(_I32)[:, None], spk], dim=1)
         if stages is not None:
             stages.mark("encode/compact")
         return packed, hist.to(_I32)
 
     def decode_exec(self, states, stream, wire_bits, offpk, scales, vparams,
-                    wparams, qdiv, tid: int = 0, stages=None):
-        """Wire fields (device tensors: states [C, NL] int64, stream [W]
-        int32 u16 words zero-padded by >= C*NL, wire_bits / offpk /
-        scales int64, vparams / wparams [C, F, 6] f32, qdiv [N] int32) ->
-        pixels [C, HW] uint8, inverse channel transform applied."""
+                    wparams, qdiv, tids, stages=None):
+        """Wire fields of a batch (device tensors: states [B, C, NL] int64,
+        stream [B, W] int32 u16 words zero-padded by >= C*NL, wire_bits /
+        offpk / scales [B, C, CA(, 32)] int64, vparams / wparams
+        [B, C, F, 6] f32, qdiv [B, 512] int32, one quantizer an image, tids
+        [B] int32) -> pixels [B, C, HW] uint8, each image's inverse channel
+        transform applied."""
         if stages is not None:
             stages.start()
         return self.decode_fn(
             states, stream, wire_bits, offpk, scales, vparams, wparams, qdiv,
-            tid, stages=stages,
+            tids, stages=stages,
         )
 
 
@@ -460,72 +506,197 @@ def _unpack_channels(head: np.ndarray, prog: CodecProgram):
     return out, est_bits / 8.0
 
 
-def _encode_dispatch(image: RasterImage, opts: EncoderOptions, device, stages=None):
-    """Upload + run the fused encode for one image; returns (prog,
-    (packed, hist) device tensors, qm, transform id)."""
+# ---------------------------------------------------------------- transfers
+
+
+def _upload(arrays, device):
+    """numpy arrays -> tensors on `device`: on the card each goes through
+    pinned host memory as a non_blocking copy on the current stream (the
+    caching host allocator keeps the pinned block until the copy is done),
+    so the host does not wait for the device."""
+    ts = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    if device.type == "cpu":
+        return ts
+    return [t.pin_memory().to(device, non_blocking=True) for t in ts]
+
+
+def _ready_event(device):
+    """An event recorded on the current stream after the work just queued
+    (None on the CPU): what a fetch of that work waits for."""
+    if device.type == "cpu":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def _fetch(t: torch.Tensor, ready) -> np.ndarray:
+    """Copy device tensor `t` to the host once the work before `ready` is
+    done, and wait for that copy alone: on a side stream of the device
+    that waits for `ready`, into pinned memory, so work queued after
+    `ready` (the next batch) keeps the device busy meanwhile. Safe from
+    worker threads."""
+    if t.device.type == "cpu":
+        return t.numpy()
+    side = torch.cuda.Stream(device=t.device)
+    side.wait_event(ready)
+    with torch.cuda.stream(side):
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(side)
+    done.synchronize()
+    return host.numpy()
+
+
+# ---------------------------------------------------------------- encode
+
+
+@dataclasses.dataclass
+class _EncodeBatch:
+    """One dispatched encode batch: its program, the device outputs
+    (packed [B, ...], hist), the quantization matrix, the images' metadata
+    and transform ids, the uploaded pixels [B, HW, C] (the device-verified
+    round trip compares against them) and the event after its work."""
+
+    prog: CodecProgram
+    packed: torch.Tensor
+    hist: torch.Tensor
+    qm: np.ndarray
+    meta: object
+    tids: List[int]
+    pixels: torch.Tensor
+    ready: object
+
+
+def _encode_dispatch(images: List[RasterImage], opts: EncoderOptions, device,
+                     stages=None, tids=None) -> _EncodeBatch:
+    """Upload + queue the fused encode of one same-shape batch without
+    waiting for it: the host resolves each image's transform (`tids`
+    forces them, one id 0-3 an RGB image), the device does the rest."""
     if opts.mode != "grid":
         raise NotImplementedError(f"mode={opts.mode!r}: only grid mode is ported")
-    meta = image.metadata
+    if not images:
+        raise ValueError("an encode batch needs at least one image")
+    meta = images[0].metadata
+    for im in images:
+        if im.metadata != meta:
+            raise ValueError("batch images must share shape and colorspace")
     C = meta.num_channels
     lossless = opts.quality.name == "LOSSLESS"
-    tid = 0
-    if meta.colorspace == ColorSpace.RGB:
-        tid = choose_transform(image.data, opts.color_transform, lossless)
+    if meta.colorspace != ColorSpace.RGB:
+        tids = [0] * len(images)
+    elif tids is None:
+        tids = [choose_transform(im.data, opts.color_transform, lossless) for im in images]
+    elif len(tids) != len(images) or not all(0 <= t <= 3 for t in tids):
+        raise ValueError("tids must give one transform id 0-3 an image")
     sched = get_schedule(meta.height, meta.width, mode="grid")
     nl = opts.num_lanes or default_num_lanes(sched.num_symbols)
     prog = get_program(meta.height, meta.width, nl, C, device)
     qm = quantization_matrix(opts.quality)
-    qdiv = torch.as_tensor(_qdiv_array(qm, BASE_FRAC_DEPTH), device=prog.device)
-    pixels = torch.from_numpy(np.ascontiguousarray(image.data.reshape(-1, C))).to(prog.device)
-    out = prog.encode_exec(pixels, qdiv, opts.prediction_overrides(C), tid, stages)
-    return prog, out, qm, tid
-
-
-def _encode_finish(prog, packed, qm, meta, tid, opts) -> CompressedImage:
-    """Fetch the headers, then exactly the stream words they announce, and
-    unpack them into a container."""
-    hw = prog.hdr_words
-    head = packed[:hw].cpu().numpy()
-    total = int(head[hw - 1])
-    need = (total + 1) // 2
-    tail = packed[hw : hw + need].cpu().numpy()
-    stream = tail.view(np.uint16)[:total].copy()
-    channel_data, est_payload = _unpack_channels(head, prog)
-    C = prog.channels
-    return CompressedImage(
-        metadata=meta,
-        channel_data=list(channel_data) + [None] * (3 - C),
-        quality=opts.quality.value,
-        num_lanes=prog.nl,
-        quantization_matrix=np.asarray(qm, dtype=np.uint16),
-        mode="grid",
-        stream=stream,
-        transform=tid,
-        est_payload_bytes=est_payload,
+    px = np.stack([im.data.reshape(-1, C) for im in images])  # [B, HW, C] uint8
+    pixels, qdiv, tids_dev = _upload(
+        (px, _qdiv_array(qm, BASE_FRAC_DEPTH), np.asarray(tids, np.int32)), prog.device
     )
+    packed, hist = prog.encode_exec(
+        pixels, qdiv, opts.prediction_overrides(C), tids_dev, stages
+    )
+    return _EncodeBatch(prog, packed, hist, qm, meta, tids, pixels, _ready_event(prog.device))
 
 
-def _maybe_reencode_flat(image, ci, opts, device) -> CompressedImage:
+def _encode_finish(enc: _EncodeBatch, opts: EncoderOptions) -> List[CompressedImage]:
+    """Fetch one batch's headers (with each image's stream total), then the
+    stream prefix the largest total needs, and unpack them into one
+    container an image."""
+    prog = enc.prog
+    hw = prog.hdr_words
+    head = _fetch(enc.packed[:, :hw], enc.ready)
+    totals = head[:, hw - 1].astype(np.int64)
+    need = int((totals.max() + 1) // 2)
+    tail = _fetch(enc.packed[:, hw : hw + need], enc.ready)
+    C = prog.channels
+    out = []
+    for b in range(head.shape[0]):
+        stream = np.ascontiguousarray(tail[b]).view(np.uint16)[: totals[b]].copy()
+        channel_data, est_payload = _unpack_channels(head[b], prog)
+        out.append(
+            CompressedImage(
+                metadata=enc.meta,
+                channel_data=list(channel_data) + [None] * (3 - C),
+                quality=opts.quality.value,
+                num_lanes=prog.nl,
+                quantization_matrix=np.asarray(enc.qm, dtype=np.uint16),
+                mode="grid",
+                stream=stream,
+                transform=enc.tids[b],
+                est_payload_bytes=est_payload,
+            )
+        )
+    return out
+
+
+def _maybe_reencode_flat(images, cis, opts, device) -> List[CompressedImage]:
     """Rate fix for flat content: where the per-lane wire overhead would
-    dominate the expected payload (computed on the device), re-encode at
-    the rate-adaptive lane count (schedule.rate_adaptive_lanes)."""
-    if opts.num_lanes is not None or ci.est_payload_bytes is None:
-        return ci  # caller pinned lanes (also the re-encode's guard)
-    nl = rate_adaptive_lanes(ci.num_lanes, ci.est_payload_bytes, ci.metadata.num_channels)
-    if nl >= ci.num_lanes:
-        return ci
-    return encode_pipeline_torch(image, dataclasses.replace(opts, num_lanes=nl), device)
+    dominate an image's expected payload (computed on the device),
+    re-encode it at the rate-adaptive lane count
+    (schedule.rate_adaptive_lanes), one batch for each such count."""
+    if opts.num_lanes is not None:
+        return cis  # caller pinned lanes (also the re-encode's guard)
+    groups: Dict[int, List[int]] = {}
+    for i, ci in enumerate(cis):
+        if ci.est_payload_bytes is None:
+            continue
+        nl = rate_adaptive_lanes(ci.num_lanes, ci.est_payload_bytes, ci.metadata.num_channels)
+        if nl < ci.num_lanes:
+            groups.setdefault(nl, []).append(i)
+    for nl, idxs in groups.items():
+        redo = encode_pipeline_torch_batch(
+            [images[i] for i in idxs], dataclasses.replace(opts, num_lanes=nl), device
+        )
+        for i, ci in zip(idxs, redo):
+            cis[i] = ci
+    return cis
+
+
+def encode_pipeline_torch_batch(
+    images: List[RasterImage], opts: EncoderOptions, device="cuda", stages=None
+) -> List[CompressedImage]:
+    """Encode a batch of same-shape images on `device`: one dispatch (one
+    launch of each kernel for the batch), one fetch of the headers and one
+    of the streams."""
+    enc = _encode_dispatch(images, opts, device, stages)
+    cis = _encode_finish(enc, opts)
+    if stages is not None:
+        stages.mark("encode/fetch")
+    return _maybe_reencode_flat(images, cis, opts, device)
+
+
+def encode_pipeline_torch_stream(
+    images: List[RasterImage], opts: EncoderOptions, batch_size: int = 8, device="cuda"
+) -> List[CompressedImage]:
+    """Host/device-pipelined encode over same-shape images: batch i+1 is
+    queued on the device before batch i is fetched and unpacked (double
+    buffering). Containers come back in the images' order."""
+    out: List[CompressedImage] = []
+    pending = None
+    for i in range(0, len(images), batch_size):
+        enc = _encode_dispatch(images[i : i + batch_size], opts, device)
+        if pending is not None:
+            out.extend(_encode_finish(pending, opts))
+        pending = enc
+    if pending is not None:
+        out.extend(_encode_finish(pending, opts))
+    return _maybe_reencode_flat(images, out, opts, device)
 
 
 def encode_pipeline_torch(
     image: RasterImage, opts: EncoderOptions, device="cuda", stages=None
 ) -> CompressedImage:
-    """Encode one image on `device` into a CompressedImage."""
-    prog, (packed, _hist), qm, tid = _encode_dispatch(image, opts, device, stages)
-    ci = _encode_finish(prog, packed, qm, image.metadata, tid, opts)
-    if stages is not None:
-        stages.mark("encode/fetch")
-    return _maybe_reencode_flat(image, ci, opts, device)
+    """Encode one image on `device` into a CompressedImage (a batch of one)."""
+    return encode_pipeline_torch_batch([image], opts, device, stages)[0]
+
+
+# ---------------------------------------------------------------- decode
 
 
 def assemble_wire_batch(images, nl: int):
@@ -579,37 +750,159 @@ def assemble_wire_batch(images, nl: int):
     return states, streams, bits, offpk, scales, vparams, wparams, qdiv, tids
 
 
-def decode_pipeline_torch(image: CompressedImage, device="cuda", stages=None) -> RasterImage:
-    """Decode one grid-mode container on `device`."""
-    if image.mode != "grid":
-        raise NotImplementedError(f"mode={image.mode!r}: only grid mode is ported")
-    meta = image.metadata
-    C, nl = meta.num_channels, image.num_lanes
-    prog = get_program(meta.height, meta.width, nl, C, device)
-    states, streams, bits, offpk, scales, vp, wp, qdiv, tids = assemble_wire_batch([image], nl)
-    dev = prog.device
+@dataclasses.dataclass
+class _DecodeBatch:
+    """One dispatched decode batch: the device pixels [B, C, HW], the
+    images' metadata and the event after its work."""
 
-    def put(a, dt=_I64):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+    pixels: torch.Tensor
+    meta: object
+    ready: object
 
-    pixels = prog.decode_exec(
-        put(states[0].astype(np.int64)),
-        put(streams[0], _I32),
-        put(bits[0]),
-        put(offpk[0].astype(np.int64)),
-        put(scales[0]),
-        put(vp[0], _F32),
-        put(wp[0], _F32),
-        put(qdiv[0], _I32),
-        int(tids[0]),
-        stages=stages,
+
+def _decode_dispatch(images: List[CompressedImage], device, stages=None) -> _DecodeBatch:
+    """Upload + queue the decode of one same-shape batch (the images may mix
+    quality presets and transforms) without waiting for it."""
+    if not images:
+        raise ValueError("a decode batch needs at least one image")
+    meta = images[0].metadata
+    nl, mode = images[0].num_lanes, images[0].mode
+    for im in images:
+        if im.metadata != meta or im.num_lanes != nl or im.mode != mode:
+            raise ValueError("batch must share shape, colorspace, lanes and mode")
+    if mode != "grid":
+        raise NotImplementedError(f"mode={mode!r}: only grid mode is ported")
+    prog = get_program(meta.height, meta.width, nl, meta.num_channels, device)
+    states, streams, bits, offpk, scales, vp, wp, qdiv, tids = assemble_wire_batch(images, nl)
+    args = _upload(
+        (states.astype(np.int64), streams.astype(np.int32), bits.astype(np.int64),
+         offpk.astype(np.int64), scales.astype(np.int64), vp, wp, qdiv, tids),
+        prog.device,
     )
-    return _decode_finish(pixels, meta, C, stages)
+    pixels = prog.decode_exec(*args, stages=stages)
+    return _DecodeBatch(pixels, meta, _ready_event(prog.device))
 
 
-def _decode_finish(pixels: torch.Tensor, meta, C: int, stages=None) -> RasterImage:
-    """Fetch [C, HW] device pixels and wrap them as a RasterImage."""
-    px = pixels.cpu().numpy()
+def _decode_finish(dec: _DecodeBatch, stages=None) -> List[RasterImage]:
+    """Fetch a batch's [B, C, HW] device pixels and wrap each image as a
+    RasterImage (a transpose on the host)."""
+    px = _fetch(dec.pixels, dec.ready)
     if stages is not None:
         stages.mark("decode/fetch")
-    return RasterImage(metadata=meta, data=px.T.reshape(meta.height, meta.width, C))
+    meta = dec.meta
+    C = meta.num_channels
+    return [
+        RasterImage(metadata=meta, data=px[b].T.reshape(meta.height, meta.width, C))
+        for b in range(px.shape[0])
+    ]
+
+
+def decode_pipeline_torch_batch(
+    images: List[CompressedImage], device="cuda", stages=None
+) -> List[RasterImage]:
+    """Decode a batch of same-shape grid-mode containers on `device` (they
+    may mix quality presets and transforms): one dispatch, one launch of
+    kernel 3 per non-empty wave and one of kernel B for the batch, one
+    fetch."""
+    return _decode_finish(_decode_dispatch(images, device, stages), stages)
+
+
+def decode_pipeline_torch_stream(
+    images: List[CompressedImage], batch_size: int = 8, device="cuda"
+) -> List[RasterImage]:
+    """Host/device-pipelined decode (double buffering, as
+    encode_pipeline_torch_stream). Images come back in order."""
+    out: List[RasterImage] = []
+    pending = None
+    for i in range(0, len(images), batch_size):
+        dec = _decode_dispatch(images[i : i + batch_size], device)
+        if pending is not None:
+            out.extend(_decode_finish(pending))
+        pending = dec
+    if pending is not None:
+        out.extend(_decode_finish(pending))
+    return out
+
+
+def decode_pipeline_torch(image: CompressedImage, device="cuda", stages=None) -> RasterImage:
+    """Decode one grid-mode container on `device` (a batch of one)."""
+    return decode_pipeline_torch_batch([image], device, stages)[0]
+
+
+# ---------------------------------------------------------------- round trip
+
+
+def _device_verify_batch(dec: _DecodeBatch, pixels_in: torch.Tensor):
+    """Queue the count of decoded pixels [B, C, HW] that differ from the
+    encode's upload [B, HW, C] on the device. Returns a callable that
+    fetches it: one scalar crosses to the host instead of the pixels."""
+    count = (dec.pixels != pixels_in.transpose(1, 2)).sum()
+    ready = _ready_event(count.device)
+    return lambda: int(_fetch(count, ready))
+
+
+def roundtrip_pipeline_torch_stream(
+    images: List[RasterImage],
+    opts: EncoderOptions,
+    batch_size: int = 8,
+    device="cuda",
+    device_verify: bool = False,
+):
+    """Software-pipelined encode -> container bytes -> decode over a
+    same-shape corpus; returns (blobs, decoded images), or with
+    device_verify (blobs, total mismatch count): the decoded pixels are
+    compared with the encode's uploaded pixels on the device and never
+    fetched.
+
+    The main thread queues the device work in the order enc_i, dec_(i-1);
+    two worker threads fetch: one batch's containers (then serialize and
+    parse them) while the device runs the next encode, and the decoded
+    pixels or mismatch count of the batch before. A fetch waits only for
+    its own batch's event (see _fetch), so the host's work rides the
+    device's."""
+    blobs: List[bytes] = []
+    outs: List[RasterImage] = []
+    mismatches = 0
+
+    def enc_finish(enc):
+        cis = _encode_finish(enc, opts)
+        bl = [serialize(ci) for ci in cis]
+        return bl, [deserialize(b) for b in bl], enc.pixels
+
+    def collect(fut):
+        nonlocal mismatches
+        if device_verify:
+            mismatches += fut.result()
+        else:
+            outs.extend(fut.result())
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+
+        def launch_decode(cis, pixels_in):
+            dec = _decode_dispatch(cis, device)
+            if device_verify:
+                return pool.submit(_device_verify_batch(dec, pixels_in))
+            return pool.submit(_decode_finish, dec)
+
+        enc_fut = dec_fut = None
+        for i in range(0, len(images), batch_size):
+            enc = _encode_dispatch(images[i : i + batch_size], opts, device)  # enc_i
+            new_dec = None
+            if enc_fut is not None:
+                bl, cis, px_in = enc_fut.result()
+                blobs.extend(bl)
+                new_dec = launch_decode(cis, px_in)  # dec_(i-1)
+            if dec_fut is not None:
+                collect(dec_fut)
+            dec_fut = new_dec
+            enc_fut = pool.submit(enc_finish, enc)
+        if enc_fut is not None:  # drain: the last encode's decode
+            bl, cis, px_in = enc_fut.result()
+            blobs.extend(bl)
+            last = launch_decode(cis, px_in)
+            for fut in (dec_fut, last):
+                if fut is not None:
+                    collect(fut)
+    if device_verify:
+        return blobs, mismatches
+    return blobs, outs

@@ -6,10 +6,13 @@
 // together with what frave_tpu/codec/pipeline_jax.py:423-428 runs before
 // it (pixels.T, the channel transform _transform_device and the leaf
 // gather under leaf_mask) and the trailing zero slot that the statistics
-// read as the missing neighbour. It reads the [H*W, C] u8 image through
-// the pixel map leaf_pix and writes the [C, >= T*512 + 1] int32
-// coefficient plane the statistics read. Bound: device memory, and only
-// what the head needs: the pixels once (12.6 MB at 2048x2048 RGB; read
+// read as the missing neighbour, for a whole same-shape batch in one
+// launch (the JAX program's vmap over B). It reads the [B, H*W, C] u8
+// images through the pixel map leaf_pix and writes the [B, C, >= T*512 + 1]
+// int32 coefficient planes the statistics read; image b takes transform
+// tids[b] (read on the device) and the grid's y index. Bound: device
+// memory, and only what the head needs, per image: the pixels once
+// (12.6 MB at 2048x2048 RGB; read
 // through L2, which holds all of them), leaf_pix once (17.3 MB) and the
 // plane once (51.9 MB), about 82 MB or 0.024 ms at 3.35 TB/s. The
 // previous design took eight torch launches around a lifting kernel (the
@@ -37,8 +40,9 @@
 //   * the truncated quantize (C++ `/`, skipped where q is 1) and vector
 //     stores straight into the plane: every lane's runs as int4 / int2
 //     stores, the warp's 2 KB row coalesced;
-//   * block 0 writes the zero slot of every channel row, and the padding
-//     columns after it, on every call (the plane comes from torch.empty).
+//   * block 0 of each image writes the zero slot of every channel row of
+//     that image, and the padding columns after it, on every call (the
+//     plane comes from torch.empty).
 // A node whose leaves are all out of bounds is 0 (out-of-bounds leaves
 // stage 0), and a missing child contributes 0, which is the reference's
 // masked lifting.
@@ -46,7 +50,9 @@
 // frave_inv_lift_pixels (kernel B) replaces dequantize_inverse_lift
 // (_inv_kernel) together with the decode tail after it
 // (frave_tpu/codec/grid_decode.py:511-514: the pix_inv gather, the clamp
-// to [0, 255] and the inverse channel transform). Bound: device memory,
+// to [0, 255] and the inverse channel transform), for a whole same-shape
+// batch in one launch: image b (the grid's y index) reads its own plane,
+// qdiv row and transform tids[b]. Bound: device memory,
 // and only what the decode needs: the coefficient plane is read where it
 // lies (no [C*T, 512] copy), the masks once a tile for all C channels,
 // leaf_pix once, and the pixels written once as bytes (about 90 MB, 0.027
@@ -150,8 +156,9 @@ template <int CH>
 __global__ void __launch_bounds__(kHeadThreads, 3)
 fwd_lift_pixels_kernel(const uint8_t* __restrict__ pixels,
                        const int32_t* __restrict__ leaf_pix,
-                       const int32_t* __restrict__ qdiv, int32_t* __restrict__ out,
-                       int64_t qstride, int64_t hw, int tiles, int tid, int tpb) {
+                       const int32_t* __restrict__ qdiv,
+                       const int32_t* __restrict__ tids, int32_t* __restrict__ out,
+                       int64_t qstride, int64_t hw, int tiles, int tpb) {
   constexpr int kMaxT = kWarpsBlock / CH;
   __shared__ __align__(16) uint8_t s_px[kMaxT][CH][kLeaves];
   __shared__ __align__(16) uint8_t s_in[kMaxT][kLeaves];
@@ -159,12 +166,16 @@ fwd_lift_pixels_kernel(const uint8_t* __restrict__ pixels,
   const int tile0 = blockIdx.x * tpb;
   const int leaf = threadIdx.x;
   s_q[leaf] = __ldg(qdiv + leaf);
+  // the block's image is blockIdx.y: its pixels, planes and transform are
+  // offset where they are used, so that no image pointer stays live in a
+  // register (three blocks an SM leave 40 a thread)
 
-  if (blockIdx.x == 0) {  // the zero slot and the padding after it
+  if (blockIdx.x == 0) {  // the image's zero slot and the padding after it
     const int64_t n = static_cast<int64_t>(tiles) * kLeaves;
     const int pad = static_cast<int>(qstride - n);
+    int32_t* rows = out + static_cast<int64_t>(blockIdx.y) * CH * qstride;
     for (int k = threadIdx.x; k < CH * pad; k += blockDim.x)
-      out[(k / pad) * qstride + n + k % pad] = 0;
+      rows[(k / pad) * qstride + n + k % pad] = 0;
   }
 
   // phase 1: leaf `leaf` of each of the block's tiles. Straight-line
@@ -180,10 +191,12 @@ fwd_lift_pixels_kernel(const uint8_t* __restrict__ pixels,
 #pragma unroll
   for (int j = 0; j < kMaxT; ++j) {
     const bool in = p[j] >= 0 && p[j] < hw;
-    const uint8_t* px = pixels + CH * static_cast<int64_t>(in ? p[j] : 0);
+    const uint8_t* px =
+        pixels + CH * (static_cast<int64_t>(blockIdx.y) * hw + (in ? p[j] : 0));
 #pragma unroll
     for (int c = 0; c < CH; ++c) raw[j][c] = in ? __ldg(px + c) : 0;
   }
+  const int tid = CH == 3 ? __ldg(tids + blockIdx.y) : 0;
 #pragma unroll
   for (int j = 0; j < kMaxT; ++j) {
     if (j < tpb) {
@@ -248,7 +261,8 @@ fwd_lift_pixels_kernel(const uint8_t* __restrict__ pixels,
   const int4 q8b = reinterpret_cast<const int4*>(s_q + 256)[2 * i + 1];
   const int4 q7 = reinterpret_cast<const int4*>(s_q + 128)[i];
   const int2 q6 = reinterpret_cast<const int2*>(s_q + 64)[i];
-  int32_t* base = out + c * qstride + static_cast<int64_t>(tile0 + tl) * kLeaves;
+  int32_t* base = out + (static_cast<int64_t>(blockIdx.y) * CH + c) * qstride +
+                  static_cast<int64_t>(tile0 + tl) * kLeaves;
   base[i] = quant(top, s_q[i]);
   base[32 + i] = quant(c5, s_q[32 + i]);
   reinterpret_cast<int2*>(base + 64)[i] = make_int2(quant(c6[0], q6.x), quant(c6[1], q6.y));
@@ -305,13 +319,14 @@ __device__ __forceinline__ void inverse_transform(int tid, int a, int g, int c,
 }
 
 __global__ void __launch_bounds__(512)
-inv_lift_pixels_kernel(const int32_t* __restrict__ qplane, int64_t qstride,
-                       const uint8_t* __restrict__ node_mask,
+inv_lift_pixels_kernel(const int32_t* __restrict__ qplane, int64_t istride,
+                       int64_t qstride, const uint8_t* __restrict__ node_mask,
                        const uint8_t* __restrict__ leaf_mask,
                        const int32_t* __restrict__ qdiv,
+                       const int32_t* __restrict__ tids,
                        const int32_t* __restrict__ leaf_pix,
                        uint8_t* __restrict__ out, int64_t hw, int tiles,
-                       int channels, int tid) {
+                       int channels) {
   __shared__ __align__(16) uint8_t s_nm[kMaxTilesBlock][kLeaves];
   __shared__ __align__(16) uint8_t s_lm[kMaxTilesBlock][kLeaves];
   __shared__ __align__(16) uint8_t s_px[kMaxTilesBlock][3][kLeaves];
@@ -322,6 +337,12 @@ inv_lift_pixels_kernel(const int32_t* __restrict__ qplane, int64_t qstride,
   const int tl = warp / channels, c = warp % channels;
   const int t = tile0 + tl;
   const bool live = t < tiles;
+  // this block's image: its plane, qdiv row, transform and pixels
+  const int64_t img = blockIdx.y;
+  qplane += img * istride;
+  qdiv += img * kLeaves;
+  out += img * channels * hw;
+  const int tid = channels == 3 ? __ldg(tids + img) : 0;
 
   // this warp's channel row of tile t: lane i takes coefficient i (the
   // top levels) and the runs of its level-5 subtree, 32+i, 64+2i..+1,
@@ -439,56 +460,65 @@ inv_lift_pixels_kernel(const int32_t* __restrict__ qplane, int64_t qstride,
 
 }  // namespace
 
-// pixels [hw, channels] u8 (HWC), leaf_pix [tiles * 512] int32 (-1 out of
-// bounds), qdiv [512] int32 (>= 1), hw >= 1 (pixel 0 is read in place of
-// an out-of-bounds leaf's, and the bytes dropped); out: C rows of row stride qstride int32
-// (>= tiles * 512 + 1, a multiple of 4), 16-byte aligned. Writes columns
-// 0 .. tiles * 512 - 1 (the plane) and zeros from tiles * 512 up to the
-// stride. channels 1 or 3 (the transform `tid`, 0-3, runs at 3); tpb tiles
-// a block, 1 .. 16 / channels.
+// pixels [images, hw, channels] u8 (HWC images back to back), leaf_pix
+// [tiles * 512] int32 (-1 out of bounds), qdiv [512] int32 (>= 1), tids
+// [images] int32 (the transform of each image, 0-3, read at channels = 3;
+// any other value runs as 0), hw >= 1 (pixel 0 is read in place of an
+// out-of-bounds leaf's, and the bytes dropped); out: images x channels rows
+// of row stride qstride int32 (>= tiles * 512 + 1, a multiple of 4),
+// 16-byte aligned. Writes columns 0 .. tiles * 512 - 1 of every row (the
+// plane) and zeros from tiles * 512 up to the stride. channels 1 or 3; tpb
+// tiles a block, 1 .. 16 / channels; images 1 .. 65535.
 extern "C" int frave_fwd_lift_pixels(const void* pixels, const void* leaf_pix,
-                                     const void* qdiv, void* out, long long qstride,
-                                     long long hw, int tiles, int channels, int tid,
-                                     int tpb, void* stream) {
-  if ((channels != 1 && channels != 3) || tiles < 0 || hw < 0 || tid < 0 || tid > 3 ||
-      qstride < static_cast<long long>(tiles) * kLeaves + 1 || qstride % 4 || tpb < 1 ||
-      tpb > kWarpsBlock / channels || (tiles > 0 && hw < 1))
+                                     const void* qdiv, const void* tids, void* out,
+                                     long long qstride, long long hw, int tiles,
+                                     int channels, int images, int tpb, void* stream) {
+  if ((channels != 1 && channels != 3) || tiles < 0 || hw < 0 || images < 1 ||
+      images > 65535 || qstride < static_cast<long long>(tiles) * kLeaves + 1 ||
+      qstride % 4 || tpb < 1 || tpb > kWarpsBlock / channels || (tiles > 0 && hw < 1) ||
+      (channels == 3 && tids == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = tiles > 0 ? (tiles + tpb - 1) / tpb : 1;  // >= 1: the zero slot
+  // >= 1 block an image: the zero slot
+  const dim3 grid(tiles > 0 ? (tiles + tpb - 1) / tpb : 1, images);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* px = static_cast<const uint8_t*>(pixels);
   const auto* lp = static_cast<const int32_t*>(leaf_pix);
   const auto* q = static_cast<const int32_t*>(qdiv);
+  const auto* td = static_cast<const int32_t*>(tids);
   auto* o = static_cast<int32_t*>(out);
   if (channels == 1)
-    fwd_lift_pixels_kernel<1><<<blocks, kHeadThreads, 0, st>>>(px, lp, q, o, qstride, hw, tiles,
-                                                               0, tpb);
+    fwd_lift_pixels_kernel<1><<<grid, kHeadThreads, 0, st>>>(px, lp, q, td, o, qstride, hw,
+                                                             tiles, tpb);
   else
-    fwd_lift_pixels_kernel<3><<<blocks, kHeadThreads, 0, st>>>(px, lp, q, o, qstride, hw, tiles,
-                                                               tid, tpb);
+    fwd_lift_pixels_kernel<3><<<grid, kHeadThreads, 0, st>>>(px, lp, q, td, o, qstride, hw,
+                                                             tiles, tpb);
   return static_cast<int>(cudaGetLastError());
 }
 
-// qplane: C rows of the coefficient plane, row stride qstride int32
-// (tile t of channel c at qplane + c * qstride + 512 t), 16-byte aligned
-// rows; masks and leaf_pix 16-byte aligned (the wrapper checks). channels
-// 1 or 3 (the inverse transform `tid`, 0-3, runs at 3).
-extern "C" int frave_inv_lift_pixels(const void* qplane, long long qstride,
-                                     const void* node_mask,
+// qplane: images x C rows of the coefficient planes, image stride istride
+// and row stride qstride int32 (tile t of channel c of image b at qplane +
+// b * istride + c * qstride + 512 t), 16-byte aligned rows; qdiv [images,
+// 512] int32, tids [images] int32 (the inverse transform of each image, 0-3,
+// read at channels = 3; any other value runs as 0); out [images, C, hw] u8;
+// masks and leaf_pix 16-byte aligned (the wrapper checks). channels 1 or
+// 3; images 1 .. 65535.
+extern "C" int frave_inv_lift_pixels(const void* qplane, long long istride,
+                                     long long qstride, const void* node_mask,
                                      const void* leaf_mask, const void* qdiv,
-                                     const void* leaf_pix, void* out,
-                                     long long hw, int tiles, int channels,
-                                     int tid, void* stream) {
-  if ((channels != 1 && channels != 3) || tiles < 0 || hw < 0 || tid < 0 ||
-      tid > 3 || qstride < static_cast<long long>(tiles) * kLeaves || qstride % 4)
+                                     const void* tids, const void* leaf_pix, void* out,
+                                     long long hw, int tiles, int channels, int images,
+                                     void* stream) {
+  if ((channels != 1 && channels != 3) || tiles < 0 || hw < 0 || images < 1 ||
+      images > 65535 || qstride < static_cast<long long>(tiles) * kLeaves || qstride % 4 ||
+      istride < qstride * channels || istride % 4 || (channels == 3 && tids == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (tiles == 0) return 0;
   const int tpb = kWarpsBlock / channels;
-  const int blocks = (tiles + tpb - 1) / tpb;
-  inv_lift_pixels_kernel<<<blocks, tpb * channels * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(qplane), qstride, static_cast<const uint8_t*>(node_mask),
-      static_cast<const uint8_t*>(leaf_mask), static_cast<const int32_t*>(qdiv),
-      static_cast<const int32_t*>(leaf_pix), static_cast<uint8_t*>(out), hw, tiles, channels,
-      tid);
+  const dim3 grid((tiles + tpb - 1) / tpb, images);
+  inv_lift_pixels_kernel<<<grid, tpb * channels * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(qplane), istride, qstride,
+      static_cast<const uint8_t*>(node_mask), static_cast<const uint8_t*>(leaf_mask),
+      static_cast<const int32_t*>(qdiv), static_cast<const int32_t*>(tids),
+      static_cast<const int32_t*>(leaf_pix), static_cast<uint8_t*>(out), hw, tiles, channels);
   return static_cast<int>(cudaGetLastError());
 }

@@ -56,6 +56,15 @@
 //     S = 1 and 2048x2048 RGB) and each thread's (block-local rank, renorm
 //     mask) in shared memory; after the exchange pass B takes the words.
 //
+// A same-shape batch of B images runs in one launch of B clusters (grid
+// (S, B), the JAX program's vmap over B): cluster b decodes image b's wave
+// from its own states, stream position, stream, buckets and tables (every
+// operand but the row activity has an image axis, and the kernel offsets
+// each by blockIdx.y). Word ranks never run across images, and clusters
+// share nothing, so they may run in any order and need not be resident at
+// once (at 2048x2048 RGB, 16 blocks a cluster and one block an SM, more
+// than 8 images queue behind the first clusters).
+//
 // The launch rule (frave_rans_decode_plan with cluster = 0): the smallest
 // S with at most kBlockLanes = 2048 lanes a block, capped at 16 and
 // lowered while cudaOccupancyMaxActiveClusters says S blocks cannot be
@@ -107,10 +116,31 @@ struct WaveArgs {
   uint32_t* syms;
   int64_t* x_out;
   int64_t* gptr_out;
-  uint32_t* xwork;  // [C * NL] lane states of several-tile blocks
+  uint32_t* xwork;  // [B, C * NL] lane states of several-tile blocks
   int rows, channels, lanes, contexts, stream_len;
   int64_t chunk;  // lanes a block owns (a multiple of 8)
 };
+
+// The operands of image `img`: x, gptr, buckets, stream, tables, symbols
+// and the state buffer are [B, ...] with one image's worth a stride; the
+// row activity is shared.
+__device__ __forceinline__ WaveArgs image_args(const WaveArgs& a, int64_t img) {
+  WaveArgs o = a;
+  const int64_t cnl = static_cast<int64_t>(a.channels) * a.lanes;
+  const int64_t grid = cnl * a.rows;
+  const int64_t tab = static_cast<int64_t>(a.channels) * a.contexts;
+  o.x_in += img * cnl;
+  o.gptr_in += img;
+  o.bkt += img * grid;
+  o.stream += img * a.stream_len;
+  o.cdf += img * tab * kAlphabet;
+  o.bits += img * tab;
+  o.syms += img * grid;
+  o.x_out += img * cnl;
+  o.gptr_out += img;
+  if (o.xwork != nullptr) o.xwork += img * cnl;
+  return o;
+}
 
 __host__ __device__ constexpr size_t align16(size_t n) {
   return (n + 15) & ~static_cast<size_t>(15);
@@ -293,7 +323,8 @@ __device__ __forceinline__ int block_scan(int (*s_warp)[kWarps], int buf, int cn
 // P > 0: one tile of kThreads * P lanes a block, P lanes a thread with
 // their states in registers; P == 0: several tiles of kTile lanes.
 template <int P>
-__global__ void __launch_bounds__(kThreads, 1) rans_decode_wave_kernel(const WaveArgs a) {
+__global__ void __launch_bounds__(kThreads, 1) rans_decode_wave_kernel(const WaveArgs batch) {
+  const WaveArgs a = image_args(batch, blockIdx.y);  // this cluster's image
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_warp[2][kWarps];
   __shared__ int s_tot[2];
@@ -467,10 +498,10 @@ struct Plan {
   size_t dyn;  // dynamic shared memory of a block
 };
 
-cudaLaunchConfig_t launch_config(int cluster, size_t dyn, cudaStream_t stream,
+cudaLaunchConfig_t launch_config(int cluster, int images, size_t dyn, cudaStream_t stream,
                                  cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.gridDim = dim3(cluster, images, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = dyn;
   cfg.stream = stream;
@@ -490,7 +521,7 @@ cudaError_t cluster_fits(const void* fn, int cluster, size_t dyn, bool* fits) {
     return cudaSuccess;
   }
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = launch_config(cluster, dyn, nullptr, &attr);
+  cudaLaunchConfig_t cfg = launch_config(cluster, 1, dyn, nullptr, &attr);
   int n = 0;
   cudaError_t err = cudaOccupancyMaxActiveClusters(&n, fn, &cfg);
   if (err == cudaErrorInvalidClusterSize || err == cudaErrorInvalidConfiguration) {
@@ -600,15 +631,23 @@ extern "C" int frave_rans_decode_plan(int channels, int lanes, int contexts, int
   return 0;
 }
 
+// One wave of `images` same-shape images, one cluster of `cluster` blocks
+// each: x_in / x_out [images, channels, lanes] int64, gptr_in / gptr_out
+// [images] int64, bkt / syms [images, rows, channels, lanes] int32, active
+// [rows, lanes] u8 (shared), stream [images, stream_len] int32, cdf
+// [images, channels, contexts, 1024] and bits [images, channels, contexts]
+// int32, xwork [images, xwork_words of the plan] or null where the plan
+// needs none.
 extern "C" int frave_rans_decode_wave(const void* x_in, const void* gptr_in,
                                       const void* bkt, const void* active,
                                       const void* stream, const void* cdf,
                                       const void* bits, void* syms,
                                       void* x_out, void* gptr_out, void* xwork,
                                       int rows, int channels, int lanes,
-                                      int contexts, int stream_len, int cluster,
-                                      void* cuda_stream) {
-  if (rows < 0 || stream_len < 1 || cluster < 1) return static_cast<int>(cudaErrorInvalidValue);
+                                      int contexts, int stream_len, int images,
+                                      int cluster, void* cuda_stream) {
+  if (rows < 0 || stream_len < 1 || cluster < 1 || images < 1 || images > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   Plan p;
   cudaError_t err = make_plan(channels, lanes, contexts, cluster, false, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -633,7 +672,7 @@ extern "C" int frave_rans_decode_wave(const void* x_in, const void* gptr_in,
   a.chunk = p.chunk;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      launch_config(p.cluster, p.dyn, static_cast<cudaStream_t>(cuda_stream), &attr);
+      launch_config(p.cluster, images, p.dyn, static_cast<cudaStream_t>(cuda_stream), &attr);
   switch (p.per) {
     case 1: err = launch<1>(cfg, a); break;
     case 2: err = launch<2>(cfg, a); break;
@@ -655,7 +694,7 @@ extern "C" int frave_exchange_loop(int iters, int cluster, void* sink, void* cud
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      launch_config(cluster, 0, static_cast<cudaStream_t>(cuda_stream), &attr);
+      launch_config(cluster, 1, 0, static_cast<cudaStream_t>(cuda_stream), &attr);
   err = cudaLaunchKernelEx(&cfg, exchange_loop_kernel, iters, static_cast<int*>(sink));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

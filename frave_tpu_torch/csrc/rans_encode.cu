@@ -11,6 +11,12 @@
 // Lanes at or past row_len[r] act as the padding slots of the grid: they
 // emit nothing, write word x & 0xFFFF and flag 0, and keep x.
 //
+// A same-shape batch of B images runs in one launch over B * C lane sets
+// (the JAX program's vmap over B): symbols, buckets and tables are
+// [B * C, ...] rows, the row map is shared, and the emission grid is written
+// [B, R, C, NL], so each image's words lie contiguous in its own decode
+// order and compact with a prefix sum per image.
+//
 // Bound on this card: device memory. Every lane-row reads 8 bytes
 // (symbol, bucket) and writes 3 (word, flag): 0.043 ms at 3.35 TB/s for
 // a 2048x2048 RGB grid [266, 3, 16384]. Lanes are independent, but each
@@ -22,7 +28,7 @@
 // round trip plus an L2 round trip a row (~1 us).
 //
 // Design (PERF.md has the measurements behind each point):
-//   * one block = 128 lanes of one channel (blockIdx.y); the channel's
+//   * one block = 128 lanes of one (image, channel) row (blockIdx.y); its
 //     tables sit in dynamic shared memory, one u32 freq | cdf << 16 per
 //     (context, symbol) (15 x 1024 x 4 = 61,440 B; freq and cdf are at most
 //     2^14, and both are read mod 2^16), filled with 16-byte loads at block
@@ -95,6 +101,7 @@ rans_encode_kernel(const int32_t* __restrict__ sym,
                    uint16_t* __restrict__ words, uint8_t* __restrict__ flags,
                    int64_t* __restrict__ states, int rows, int channels,
                    int lanes, int contexts, int k_total) {
+  // blockIdx.y = b * channels + c: the lane set of channel c of image b
   extern __shared__ uint4 smem[];
   uint32_t* tab = reinterpret_cast<uint32_t*>(smem);
   int32_t* sbits = reinterpret_cast<int32_t*>(tab + contexts * kAlphabet);
@@ -103,7 +110,7 @@ rans_encode_kernel(const int32_t* __restrict__ sym,
   // stage[buf][i][0 / 1][t] = symbol / bucket of thread t's lane, chunk row i
   int32_t* stage = meta + 3 * CH * 2;
   const int nt = blockDim.x, t = threadIdx.x;
-  const int c = blockIdx.y;
+  const int c = blockIdx.y;  // the (image, channel) row of the operands
   const int lane = blockIdx.x * nt + t;
   const bool live = lane < lanes;  // threads past NL keep to the barriers
   const int chunks = (rows + CH - 1) / CH;
@@ -168,8 +175,10 @@ rans_encode_kernel(const int32_t* __restrict__ sym,
   copy_rows(0);
   cp_async_commit();
 
+  // words and flags [B, R, C, NL]: image b's grid starts at b * rows * plane
   const int64_t plane = static_cast<int64_t>(channels) * lanes;
-  const int64_t col = static_cast<int64_t>(c) * lanes + lane;
+  const int64_t col = static_cast<int64_t>(c / channels) * rows * plane +
+                      static_cast<int64_t>(c % channels) * lanes + lane;
   uint32_t x = kRansL;
   for (int n = 0; n < chunks; ++n) {
     cp_async_wait_all();
@@ -214,7 +223,7 @@ rans_encode_kernel(const int32_t* __restrict__ sym,
       x = valid[i] ? x2 : x1;
     }
   }
-  if (live) states[col] = x;  // the u32 state, zero-extended
+  if (live) states[static_cast<int64_t>(c) * lanes + lane] = x;  // u32, zero-extended
 }
 
 template <int CH>
@@ -267,29 +276,34 @@ cudaError_t plan(int channels, int lanes, int contexts, int* chunk, int* threads
 }  // namespace
 
 // The launch rule's design point (plan): rows loaded ahead and lanes a
-// block for a grid of `channels` x `lanes` lanes.
+// block for a grid of `channels` x `lanes` lanes (channels: the lane sets
+// of the whole batch, images x channels).
 extern "C" int frave_rans_encode_plan(int channels, int lanes, int contexts,
                                       int* ahead, int* threads) {
   if (channels < 1 || lanes < 1 || contexts < 1) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(plan(channels, lanes, contexts, ahead, threads));
 }
 
-// ahead / threads: rows loaded ahead, the chunk (4, 8 or 16), and lanes a
-// block (a multiple of 32 up to 512); 0 and 0 take the launch rule (plan).
-// freq, cdf and bits must be 16-byte aligned, and k_total at least 1 (the
-// wrapper sees to both).
+// sym / bkt [images * channels, k_total] int32, freq / cdf [images *
+// channels, contexts, 1024] int32, bits [images * channels, contexts] int32;
+// words / flags [images, rows, channels, lanes], states [images, channels,
+// lanes]. ahead / threads: rows loaded ahead, the chunk (4, 8 or 16), and
+// lanes a block (a multiple of 32 up to 512); 0 and 0 take the launch rule
+// (plan). freq, cdf and bits must be 16-byte aligned, and k_total at least
+// 1 (the wrapper sees to both).
 extern "C" int frave_rans_encode(const void* sym, const void* bkt,
                                  const void* row_k0, const void* row_len,
                                  const void* freq, const void* cdf,
                                  const void* bits, void* words, void* flags,
-                                 void* states, int rows, int channels,
+                                 void* states, int rows, int channels, int images,
                                  int lanes, int contexts, int k_total,
                                  int ahead, int threads, void* stream) {
-  if (rows < 0 || channels < 1 || channels > 65535 || lanes < 1 ||
-      contexts < 1 || k_total < 1)
+  if (rows < 0 || channels < 1 || images < 1 ||
+      static_cast<int64_t>(channels) * images > 65535 || lanes < 1 || contexts < 1 ||
+      k_total < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (ahead == 0 && threads == 0) {
-    const cudaError_t err = plan(channels, lanes, contexts, &ahead, &threads);
+    const cudaError_t err = plan(channels * images, lanes, contexts, &ahead, &threads);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const void* fn = kernel_for(ahead);
@@ -299,7 +313,7 @@ extern "C" int frave_rans_encode(const void* sym, const void* bkt,
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((lanes + threads - 1) / threads, channels);
+  const dim3 grid((lanes + threads - 1) / threads, channels * images);
   const int32_t* sy = static_cast<const int32_t*>(sym);
   const int32_t* bk = static_cast<const int32_t*>(bkt);
   const int32_t* k0 = static_cast<const int32_t*>(row_k0);

@@ -111,14 +111,21 @@ def finalize_contexts_device(
     # diff > 0: everything goes to the (first) largest entry
     jmax = torch.argmax(s, dim=-1, keepdim=True)
     s = s.scatter_add(-1, jmax, torch.clamp(diff, min=0)[..., None])
-    diff = torch.clamp(diff, max=0)
-    # diff < 0: repeatedly drain the (first) largest entry down to 1
-    while bool((diff < 0).any()):
-        j = torch.argmax(s, dim=-1, keepdim=True)
-        sj = torch.gather(s, -1, j)[..., 0]
-        take = torch.clamp(torch.minimum(-diff, sj - 1), min=0)
-        s = s.scatter_add(-1, j, -take[..., None])
-        diff = diff + take
-
+    s = drain_excess(s, torch.clamp(diff, max=0))
     cdf = torch.cumsum(s, dim=-1) - s
     return bits, s, cdf, off_mask
+
+
+def drain_excess(s: torch.Tensor, diff: torch.Tensor) -> torch.Tensor:
+    """The excess -diff [...] (diff <= 0) of the frequencies s [..., 1024]
+    taken as tables._normalize_freqs' loop takes it: the (first) largest
+    entry drained down to 1, then the next, until none is left. Draining
+    never reorders the entries not yet drained, so the loop visits them in
+    a stable descending sort, each giving up to s - 1: in that closed form
+    it needs no read of the device from the host (the loop's test is one
+    per step)."""
+    order = torch.sort(s, dim=-1, descending=True, stable=True).indices
+    cap = torch.clamp(torch.gather(s, -1, order) - 1, min=0)
+    before = torch.cumsum(cap, dim=-1) - cap  # what the earlier entries give
+    take = torch.minimum(torch.clamp(-diff[..., None] - before, min=0), cap)
+    return s.scatter_add(-1, order, -take)

@@ -8,6 +8,11 @@ time per call (device_ms: back-to-back calls the host enqueues behind a
 sleep kernel, CUDA events), and the wrapper's and the plain version's
 median time per call with the host's share (CUDA events). Used by
 chip_smoke.py and by the card-only test.
+
+Every problem comes for one image without a batch axis (images=0) or for
+a same-shape batch of `images` images: seeded per image, with the
+transform ids, qdivs and decode problems mixed across the batch, and the
+row map and row activity shared, as the pipeline's batches have them.
 """
 
 from __future__ import annotations
@@ -145,61 +150,119 @@ def garbage_wave(rng, R: int, C: int, NL: int):
     return x0, buckets, active, stream, cdfs, bits
 
 
-def decode_problem(rng, R: int, C: int, NL: int, kind: str):
-    """decode_scan_wave's operands (x0, gptr0, buckets, active, stream,
-    tabs) on the CPU. "valid": a rans_problem encoded by the plain
-    encode_scan and compacted, its buckets and slot validity laid out on
-    the lane grid (schedule_grid), so the wave decodes back to its symbols
-    and to states 2^16; "garbage": garbage_wave."""
+def _one_decode_problem(rng, wave_sizes, R: int, C: int, NL: int, kind: str):
+    """One image's decode_scan_wave operands as numpy-convertible tensors:
+    (x0, buckets, active, stream, cdfs, bits); "valid" on the row map of
+    `wave_sizes`."""
     i32 = torch.int32
     if kind == "garbage":
-        x0, bkt, act, stream, cdfs, bits = (_t(a) for a in garbage_wave(rng, R, C, NL))
-    elif kind == "valid":
-        sym, bkt_k, row_k0, row_len, freqs, cdfs, bits = rans_problem(rng, R, C, NL)
-        x0, words, flags = RT.encode_scan_plain(
-            sym, bkt_k, row_k0, row_len, freqs, cdfs, bits, NL
-        )
-        kc = R * C * NL
-        packed, total = RT.stream_compact_grid(words, flags, kc)
-        stream = torch.zeros(int(total) + C * NL, dtype=i32)
-        stream[: int(total)] = packed[: int(total)].to(i32) & 0xFFFF
-        bkt, act = RT.schedule_grid(bkt_k, row_k0, row_len, NL)
-    else:
+        return tuple(_t(a) for a in garbage_wave(rng, R, C, NL))
+    if kind != "valid":
         raise ValueError(f"unknown decode problem kind {kind!r}")
-    gptr0 = torch.zeros((), dtype=torch.int64)
-    return x0, gptr0, bkt, act, stream, RT.decode_tables(cdfs, bits)
+    sym, bkt_k, row_k0, row_len, freqs, cdfs, bits = schedule_problem(rng, wave_sizes, C, NL)
+    x0, words, flags = RT.encode_scan_plain(sym, bkt_k, row_k0, row_len, freqs, cdfs, bits, NL)
+    kc = R * C * NL
+    packed, total = RT.stream_compact_grid(words, flags, kc)
+    stream = torch.zeros(int(total) + C * NL, dtype=i32)
+    stream[: int(total)] = packed[: int(total)].to(i32) & 0xFFFF
+    bkt, act = RT.schedule_grid(bkt_k, row_k0, row_len, NL)
+    return x0, bkt, act, stream, cdfs, bits
 
 
-def lift_pixels_problem(rng, prog, tid: int):
+def decode_problem(rng, R: int, C: int, NL: int, kind: str, images: int = 0):
+    """decode_scan_wave's operands (x0, gptr0, buckets, active, stream,
+    tabs) on the CPU. "valid": a schedule_problem on draw_wave_sizes
+    encoded by the plain encode_scan and compacted, its buckets and slot
+    validity laid out on the lane grid (schedule_grid), so the wave decodes
+    back to its symbols and to states 2^16; "garbage": garbage_wave.
+    images > 0: a batch, every image its own problem of `kind` on one
+    shared row activity (the first image's), streams zero-padded to the
+    longest."""
+    wave_sizes = draw_wave_sizes(rng, R, NL) if kind == "valid" else None
+    if not images:
+        x0, bkt, act, stream, cdfs, bits = _one_decode_problem(rng, wave_sizes, R, C, NL, kind)
+        return x0, torch.zeros((), dtype=torch.int64), bkt, act, stream, RT.decode_tables(cdfs, bits)
+    probs = [_one_decode_problem(rng, wave_sizes, R, C, NL, kind) for _ in range(images)]
+    W = max(p[3].shape[0] for p in probs)
+    streams = torch.zeros((images, W), dtype=torch.int32)
+    for b, p in enumerate(probs):
+        streams[b, : p[3].shape[0]] = p[3]
+    x0, bkt, cdfs, bits = (torch.stack([p[k] for p in probs]) for k in (0, 1, 4, 5))
+    act = probs[0][2]
+    gptr0 = torch.zeros((images,), dtype=torch.int64)
+    return x0, gptr0, bkt, act, streams, RT.decode_tables(cdfs, bits)
+
+
+def _batch_tids(tid: int, images: int, C: int):
+    """Transform ids of a batch: `tid` for one image (images=0); at C = 3
+    the batch runs tid, tid + 1, ... mod 4, at C = 1 zeros."""
+    if not images:
+        return tid
+    if C != 3:
+        return torch.zeros(images, dtype=torch.int32)
+    return torch.tensor([(tid + b) % 4 for b in range(images)], dtype=torch.int32)
+
+
+def lift_pixels_problem(rng, prog, tid: int, images: int = 0):
     """dequantize_inverse_lift_pixels' operands from a CodecProgram (its
     masks and both directions of its pixel map) on the program's device:
     the coefficient plane [C, T*512] of seeded leaves in [0, 255] through
     the plain forward lifting and a lossy qdiv, with 1% of coefficients
-    pushed by up to +-40 so the clamp binds. Returns (args, (tid,))."""
+    pushed by up to +-40 so the clamp binds. images > 0: planes
+    [B, C, T*512], each image its own leaves, qdiv [B, 512] alternating
+    lossy and lossless, the transform ids _batch_tids. Returns (args,
+    (tids,))."""
     C, Tn, dev = prog.channels, prog.num_tiles, prog.device
     n = Tn * 512
     lm = prog.leaf_mask_u8
-    qdiv = _lossy_qdiv(512).to(dev)
-    leaves = _t(rng.integers(0, 256, size=(C * Tn, 512)).astype(np.int32)).to(dev)
-    leaves = torch.where(lm.to(torch.bool).repeat(C, 1), leaves, 0)
-    push = rng.integers(-40, 41, size=(C, n)) * (rng.random((C, n)) < 0.01)
-    qplane = L.forward_lift_quantize_plain(leaves, lm, qdiv, 9).reshape(C, n)
-    qplane += _t(push.astype(np.int32)).to(dev)
+    planes, qdivs = [], []
+    for b in range(max(images, 1)):
+        qdiv = _lossy_qdiv(512) if b % 2 == 0 else torch.ones(512, dtype=torch.int32)
+        leaves = _t(rng.integers(0, 256, size=(C * Tn, 512)).astype(np.int32)).to(dev)
+        leaves = torch.where(lm.to(torch.bool).repeat(C, 1), leaves, 0)
+        push = rng.integers(-40, 41, size=(C, n)) * (rng.random((C, n)) < 0.01)
+        qplane = L.forward_lift_quantize_plain(leaves, lm, qdiv.to(dev), 9).reshape(C, n)
+        planes.append(qplane + _t(push.astype(np.int32)).to(dev))
+        qdivs.append(qdiv.to(dev))
+    tids = _batch_tids(tid, images, C)
+    if images:
+        qplane, qdiv, tids = torch.stack(planes), torch.stack(qdivs), tids.to(dev)
+    else:
+        qplane, qdiv = planes[0], qdivs[0]
     args = (qplane, prog.node_mask_u8, lm, qdiv, prog.leaf_pix, prog.pix_inv)
-    return args, (tid,)
+    return args, (tids,)
 
 
-def lift_head_problem(rng, prog, tid: int, qkind: str = "lossy"):
+def lift_head_problem(rng, prog, tid: int, qkind: str = "lossy", images: int = 0):
     """forward_lift_quantize_pixels' operands from a CodecProgram (its pixel
-    map) on the program's device: seeded pixels [H*W, C] uint8, leaf_pix,
-    and qdiv all ones ("lossless") or _lossy_qdiv ("lossy"). Returns
-    (args, (tid,))."""
+    map) on the program's device: seeded pixels [H*W, C] uint8 (images > 0:
+    [B, H*W, C], the transform ids _batch_tids), leaf_pix, and qdiv all
+    ones ("lossless") or _lossy_qdiv ("lossy"). Returns (args, (tids,))."""
     C, dev = prog.channels, prog.device
     if qkind not in QDIV_KINDS:
         raise ValueError(f"unknown qdiv kind {qkind!r}")
     qdiv = _lossy_qdiv(512) if qkind == "lossy" else torch.ones(512, dtype=torch.int32)
-    pixels = _t(rng.integers(0, 256, size=(prog.height * prog.width, C), dtype=np.uint8))
-    return (pixels.to(dev), prog.leaf_pix, qdiv.to(dev)), (tid,)
+    lead = (images,) if images else ()
+    pixels = _t(rng.integers(0, 256, size=lead + (prog.height * prog.width, C), dtype=np.uint8))
+    tids = _batch_tids(tid, images, C)
+    if images:
+        tids = tids.to(dev)
+    return (pixels.to(dev), prog.leaf_pix, qdiv.to(dev)), (tids,)
+
+
+def grid_shapes(h: int, w: int, c: int, nl: int = 0) -> dict:
+    """The shapes the main path gives the kernels at an h x w x c image
+    with nl lanes (0: the default count): "grid" (R, C, NL) of
+    encode_scan, "wave" the largest decode wave (rows, C, NL), and "waves"
+    the number of non-empty waves, one decode_scan_wave launch each
+    (kernels A and B run on the image's program itself)."""
+    from .fractal.schedule import default_num_lanes, get_schedule, grid_row_lane
+
+    sched = get_schedule(h, w, mode="grid")
+    nl = nl or default_num_lanes(sched.num_symbols)
+    _, _, rows, per_wave = grid_row_lane(sched, nl)
+    return {"grid": (int(rows), c, nl),
+            "wave": (int(per_wave.max()), c, nl), "waves": int((per_wave > 0).sum())}
 
 
 def program(h: int, w: int, c: int, device):
@@ -212,30 +275,45 @@ def program(h: int, w: int, c: int, device):
     return get_program(h, w, nl, c, device)
 
 
-def problem(name: str, rng, shape, kind=None, device="cpu"):
+def encode_problem(rng, R: int, C: int, NL: int, images: int = 0):
+    """encode_scan's operands on the CPU: rans_problem, or for images > 0 a
+    batch of schedule_problems on one shared row map ([B, C, K] symbols
+    and buckets, [B, C, ...] tables)."""
+    if not images:
+        return rans_problem(rng, R, C, NL)
+    sizes = draw_wave_sizes(rng, R, NL)
+    probs = [schedule_problem(rng, sizes, C, NL) for _ in range(images)]
+    sym, bkt, row_k0, row_len = (torch.stack([p[k] for p in probs]) for k in range(4))
+    freqs, cdfs, bits = (torch.stack([p[k] for p in probs]) for k in range(4, 7))
+    return sym, bkt, row_k0[0], row_len[0], freqs, cdfs, bits
+
+
+def problem(name: str, rng, shape, kind=None, device="cpu", images: int = 0):
     """(positional args, extra args) for kernel `name` at `shape`:
     encode_scan and decode_scan_wave (R, C, NL), on the CPU;
     forward_lift_quantize_pixels and dequantize_inverse_lift_pixels
     (h, w, c) on `device`, the program of that image. `kind` picks
     decode_scan_wave's problem (DECODE_KINDS), kernel B's transform id
-    (0-3) and kernel A's (transform id, qdiv kind) (default (0, "lossy"))."""
+    (0-3) and kernel A's (transform id, qdiv kind) (default (0, "lossy")).
+    images: 0 for one image without a batch axis, else the batch size."""
     if name == "decode_scan_wave":
-        return decode_problem(rng, *shape, kind), ()
+        return decode_problem(rng, *shape, kind, images), ()
     if name == "dequantize_inverse_lift_pixels":
-        return lift_pixels_problem(rng, program(*shape, device), kind or 0)
+        return lift_pixels_problem(rng, program(*shape, device), kind or 0, images)
     if name == "forward_lift_quantize_pixels":
-        return lift_head_problem(rng, program(*shape, device), *(kind or (0,)))
+        kind = kind or (0,)
+        return lift_head_problem(rng, program(*shape, device), *kind, images=images)
     if kind is not None:
         raise ValueError(f"{name} has no problem kinds")
     if name == "encode_scan":
-        return rans_problem(rng, *shape), (shape[2],)
+        return encode_problem(rng, *shape, images), (shape[2],)
     raise KeyError(name)
 
 
 def _to(a, device):
     if isinstance(a, dict):
         return {k: v.to(device) for k, v in a.items()}
-    return a.to(device)
+    return a.to(device) if isinstance(a, torch.Tensor) else a
 
 
 def _max_abs_err(a, b) -> int:
@@ -316,17 +394,18 @@ def bytes_moved(name: str, args, out) -> int:
     if name != "decode_scan_wave":
         return _nbytes(args) + _nbytes(out)
     x, gptr, buckets, active, stream, tabs = args
-    used = int(out[2]) - int(gptr)
+    used = int((out[2] - gptr).sum())  # the words every image consumes
     return (_nbytes((x, gptr, buckets, active, tabs)) + used * stream.element_size()
             + _nbytes(out))
 
 
 def check(name: str, shape, device, seed: int = 0, timed: bool = False,
-          kind=None, clusters=(0,)) -> dict:
+          kind=None, clusters=(0,), images: int = 0) -> dict:
     """Kernel `name` vs its plain version on the same `device` tensors at
-    `shape` (problem `kind`, see problem()). decode_scan_wave runs at each
+    `shape` (problem `kind`, see problem(); a batch of `images` images, 0:
+    one without a batch axis). decode_scan_wave runs at each
     cluster size of `clusters` (0: its launch rule) against one plain
-    result. Returns {"name", "shape", "kind", "cluster" (the size the first
+    result. Returns {"name", "shape", "images", "kind", "cluster" (the size the first
     of `clusters` ran at; None for the other kernels), "max_abs_err" (the
     largest over `clusters`), "errs" ({cluster: err}), "bytes", "bound_ms",
     "ms" (device_ms of the wrapper), "wrapper_ms" (median_ms of the
@@ -334,8 +413,9 @@ def check(name: str, shape, device, seed: int = 0, timed: bool = False,
     timed; a timed decode_scan_wave also gives "cluster_ms" {cluster:
     device ms})."""
     wrapper, plain, _, _ = KERNELS[name]
-    args, extra = problem(name, np.random.default_rng(seed), shape, kind, device)
+    args, extra = problem(name, np.random.default_rng(seed), shape, kind, device, images)
     args = tuple(_to(a, device) for a in args)
+    extra = tuple(_to(a, device) for a in extra)
     decode = name == "decode_scan_wave"
     if not decode and tuple(clusters) != (0,):
         raise ValueError(f"{name} has no cluster size")
@@ -348,7 +428,7 @@ def check(name: str, shape, device, seed: int = 0, timed: bool = False,
     if decode and device.type == "cuda":
         ran = RT.decode_plan(shape[1], shape[2], args[5]["bits"].shape[-1], clusters[0])[0]
     nbytes = bytes_moved(name, args, ref)
-    out = {"name": name, "shape": list(shape), "kind": kind, "cluster": ran,
+    out = {"name": name, "shape": list(shape), "images": images, "kind": kind, "cluster": ran,
            "max_abs_err": max(errs.values()), "errs": errs, "bytes": nbytes,
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
            "ms": None, "wrapper_ms": None, "plain_ms": None}
@@ -412,14 +492,14 @@ def lift_head_read_ms(shape, device, seed: int = 7) -> tuple:
                  for a in (args, skip))
 
 
-def lift_head_tiles_ms(shape, device, seed: int = 7) -> dict:
+def lift_head_tiles_ms(shape, device, seed: int = 7, images: int = 0) -> dict:
     """Kernel A at every tiles a block (1 .. 16 // C) on the program of the
-    h x w x c image `shape`, transform 3 at C = 3, lossy qdiv: each must be
-    bit-equal to the plain version (raises otherwise). Returns {tiles:
-    device ms}."""
+    h x w x c image `shape` (a batch of `images`, 0: one image), transform
+    3 at C = 3, lossy qdiv: each must be bit-equal to the plain version
+    (raises otherwise). Returns {tiles: device ms}."""
     kind = (3 if shape[2] == 3 else 0, "lossy")
     args, extra = problem("forward_lift_quantize_pixels", np.random.default_rng(seed),
-                          shape, kind, device)
+                          shape, kind, device, images)
     ref = L.forward_lift_quantize_pixels_plain(*args, *extra)
     out = {}
     for tpb in range(1, L.WARPS_BLOCK // shape[2] + 1):

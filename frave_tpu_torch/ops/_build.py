@@ -45,11 +45,11 @@ _L = ctypes.c_longlong
 # C entry point -> argument types (all return int: a cudaError_t, the
 # launches cudaGetLastError())
 _SIGNATURES = {
-    "frave_fwd_lift_pixels": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P],
-    "frave_inv_lift_pixels": [_P, _L, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
-    "frave_rans_encode": [_P] * 10 + [_I] * 7 + [_P],
+    "frave_fwd_lift_pixels": [_P] * 5 + [_L, _L] + [_I] * 4 + [_P],
+    "frave_inv_lift_pixels": [_P, _L, _L] + [_P] * 6 + [_L] + [_I] * 3 + [_P],
+    "frave_rans_encode": [_P] * 10 + [_I] * 8 + [_P],
     "frave_rans_encode_plan": [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
-    "frave_rans_decode_wave": [_P] * 11 + [_I] * 6 + [_P],
+    "frave_rans_decode_wave": [_P] * 11 + [_I] * 7 + [_P],
     "frave_rans_decode_plan": [_I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "frave_exchange_loop": [_I, _I, _P, _P],
 }

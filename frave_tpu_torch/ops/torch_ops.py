@@ -13,6 +13,8 @@ Functions take tensors on any device and return tensors on that device.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..entropy.tables import BUCKET_EDGES as _BUCKET_EDGES
@@ -129,13 +131,19 @@ def dequantize(coef: torch.Tensor, divisors: torch.Tensor) -> torch.Tensor:
     return c * q + torch.sign(c) * torch.div(q - 1, 2, rounding_mode="floor")
 
 
+@functools.lru_cache(maxsize=None)
+def _bucket_edges(device: torch.device) -> torch.Tensor:
+    """The f32 bucket edges on `device`, uploaded once a device: a copy
+    from host memory made on every call would wait for the device."""
+    return torch.tensor(_BUCKET_EDGES, dtype=torch.float32).to(device)
+
+
 def assign_bucket_f32(width: torch.Tensor) -> torch.Tensor:
     """Width -> context bucket: the count of f32 edges <= width (NaN and
     negative widths -> bucket 0)."""
     w = torch.where(torch.isnan(width), torch.zeros_like(width), width)
     w = torch.clamp(w, min=0.0)
-    edges = torch.tensor(_BUCKET_EDGES, dtype=torch.float32, device=w.device)
-    return (w[..., None] >= edges).sum(dim=-1, dtype=torch.int32)
+    return (w[..., None] >= _bucket_edges(w.device)).sum(dim=-1, dtype=torch.int32)
 
 
 def _med(v: torch.Tensor):

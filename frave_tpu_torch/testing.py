@@ -13,8 +13,9 @@ import numpy as np
 # pinned-parameter container hash tests/data/torch_port_refs.json keeps
 REF_IMAGES = {
     "256x256 gray": (256, 256, 1, 1, ("LOSSLESS",)),
-    "768x512 RGB": (512, 768, 3, 2, ("LOSSLESS",)),
+    "768x512 RGB": (512, 768, 3, 2, ("LOSSLESS", "HIGH")),
     "512x512 gray": (512, 512, 1, 3, ("HIGH", "MEDIUM", "LOW")),
+    "2048x2048 RGB": (2048, 2048, 3, 4, ("LOSSLESS",)),
 }
 
 

@@ -10,9 +10,8 @@ including the empty contexts' scale rows) encodes the seeded image, then
 encodes it again with that fit and lane count pinned. The JSON keeps the
 pinned parameters, the pinned container's length and SHA-256, and each
 context's (max_freq_bits, scale index), so that a mismatch on the card
-can be read context by context. 2048x2048 RGB is not in it: a full-size
-jax encode is not run on a CPU host; the smoke holds that image against
-the C++ oracle alone.
+can be read context by context. The 2048x2048 RGB entry takes a few
+minutes on a CPU (two full-size jax encodes); the rest well under one.
 
 tests/test_torch_hostmods.py re-encodes the 256x256 gray entry with
 reference_entry and compares, so the committed hashes cannot drift from

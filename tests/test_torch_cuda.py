@@ -83,9 +83,10 @@ def test_cuda_lift_head_writes_aligned_plane_and_zero_slot():
     C, n = pixels.shape[1], leaf_pix.shape[0]
     stride = (n + 4) // 4 * 4
     buf = torch.full((C, stride), -123456, dtype=torch.int32, device=pixels.device)
+    tids = torch.tensor([extra[0]], dtype=torch.int32, device=pixels.device)
     code = _build.load_library().frave_fwd_lift_pixels(
-        pixels.data_ptr(), leaf_pix.data_ptr(), qdiv.data_ptr(), buf.data_ptr(), stride,
-        pixels.shape[0], n // 512, C, extra[0], 2, _build.current_stream(pixels.device),
+        pixels.data_ptr(), leaf_pix.data_ptr(), qdiv.data_ptr(), tids.data_ptr(), buf.data_ptr(),
+        stride, pixels.shape[0], n // 512, C, 1, 2, _build.current_stream(pixels.device),
     )
     _build.check(code, "frave_fwd_lift_pixels")
     torch.cuda.synchronize()
@@ -113,4 +114,66 @@ def test_cuda_encode_scan_design_points():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
     for shape in ((7, 1, 32), (40, 3, 300)):
         kernel_check.encode_design_ms(shape, torch.device("cuda"))
+
+
+# the batch shapes: (h, w, c) images and batch sizes of the main path's
+# batches (bench.py's 256x256 gray at B = 64, 768x512 RGB)
+BATCHES = [((256, 256, 1), (1, 3, 64)), ((512, 768, 3), (1, 2))]
+
+
+def _batch_cases(name):
+    """(shape, kind, images) of kernel `name` at every batch of BATCHES:
+    the lifting kernels on the image's program, kernel C on its grid,
+    kernel 3 on its largest wave, valid and garbage; kernel 3 also on
+    (30, 3, 16384) waves of 12 images, more 16-block clusters than the
+    card holds at once."""
+    out = []
+    for image, sizes in BATCHES:
+        sh = kernel_check.grid_shapes(*image)
+        for b in sizes:
+            if name == "forward_lift_quantize_pixels":
+                out += [(image, (tid, q), b) for tid in (0, 3)[: image[2]]
+                        for q in kernel_check.QDIV_KINDS]
+            elif name == "dequantize_inverse_lift_pixels":
+                out.append((image, 1 if image[2] == 3 else 0, b))
+            elif name == "encode_scan":
+                out.append((sh["grid"], None, b))
+            else:
+                out += [(sh["wave"], k, b) for k in kernel_check.DECODE_KINDS]
+    if name == "decode_scan_wave":
+        out += [((30, 3, 16384), k, 12) for k in kernel_check.DECODE_KINDS]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_cuda_kernel_batch_matches_plain(name):
+    """Each kernel on a whole batch in one launch, bit-equal to its plain
+    version: at B in {1, 3, 64} for 256x256 gray and {1, 2} for 768x512
+    RGB (mixed transform ids and qdivs across the batch), and kernel 3 at
+    B = 12 on 2048x2048 RGB-sized waves; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    wrapper = kernel_check.KERNELS[name][0]
+    for shape, kind, images in _batch_cases(name):
+        before = wrapper.launches
+        res = kernel_check.check(name, shape, torch.device("cuda"), kind=kind, images=images)
+        assert res["max_abs_err"] == 0, res
+        assert wrapper.launches == before + 1, (name, shape, images)
+
+
+@pytest.mark.cuda
+def test_cuda_lift_head_batch_zero_slots():
+    """Kernel A on a batch of 3 into buffers first filled with garbage: the
+    zero slot and padding of every image's rows are written."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    prog = kernel_check.program(96, 80, 3, torch.device("cuda"))
+    args, extra = kernel_check.lift_head_problem(np.random.default_rng(3), prog, 1, images=3)
+    torch.cuda.empty_cache()
+    junk = torch.full((1 << 22,), -7, dtype=torch.int32, device="cuda")
+    del junk  # the kernel's output reuses these garbage-filled blocks
+    out = L.forward_lift_quantize_pixels(*args, *extra)
+    assert (out[..., -1] == 0).all()
+    assert torch.equal(out, L.forward_lift_quantize_pixels_plain(*args, *extra))
 

@@ -282,14 +282,22 @@ def test_forward_lift_quantize_pixels_plain_matches_jax(h, w, c, tid, qkind):
 @pytest.mark.parametrize(
     "c,tiles,want",
     # the smoke's images on 132 SMs (256x256 gray, 512x512 gray, 768x512
-    # RGB: 2 and 4 tie, 2048x2048 RGB), a one-tile image, and 2048x2048
-    # gray (5 and 13 tie)
+    # RGB, 2048x2048 RGB), a one-tile image, and 2048x2048 gray
     [(1, 160, 2), (1, 578, 5), (3, 844, 4), (3, 8453, 5), (3, 1, 2), (1, 8453, 13)],
 )
 def test_forward_lift_plan(c, tiles, want):
-    """Kernel A's launch rule: the fewest tiles on the busiest SM, a tie to
-    the larger count, always within 2 .. 16 // C."""
+    """Kernel A's launch rule: the least work on the busiest SM, a tie to
+    the larger count, always within 2 .. 16 // C; the picks the smoke's
+    sweeps found fastest on an H100."""
     assert L.forward_lift_plan(c, tiles, 132) == want
+
+
+def test_forward_lift_plan_batch():
+    """The rule counts every image's blocks: the 64-image 256x256 gray
+    batch (10,240 tiles) takes 16 tiles a block, the sweep's fastest, where
+    one image takes 2."""
+    assert L.forward_lift_plan(1, 160, 132, 64) == 16
+    assert L.forward_lift_plan(1, 160, 132, 1) == 2
 
 
 def _lift_pixels_reference(qplane, nm, lm, qdiv, pix_inv, tid):

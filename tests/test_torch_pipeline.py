@@ -175,10 +175,11 @@ def check_slice(env, h, w, c, genc, seed):
         tids=jnp.asarray([tid], jnp.int32),
     )
     packed_t, hist_t = prog_t.encode_exec(
-        torch.from_numpy(px.reshape(-1, c).copy()), torch.from_numpy(qdiv), ovr, tid
+        torch.from_numpy(px.reshape(1, -1, c).copy()), torch.from_numpy(qdiv), ovr,
+        torch.tensor([tid], dtype=torch.int32),
     )
     packed_j = np.asarray(packed_j)[0]
-    packed_t = packed_t.numpy()
+    packed_t = packed_t.numpy()[0]
     assert packed_t.shape == packed_j.shape
     exp_bits_words = [(i + 1) * prog_t.chan_hdr - 1 for i in range(c)]
     keep = np.ones(packed_t.shape[0], dtype=bool)
@@ -188,7 +189,7 @@ def check_slice(env, h, w, c, genc, seed):
         packed_t[exp_bits_words].view(np.float32),
         packed_j[exp_bits_words].view(np.float32), rtol=1e-5,
     )
-    np.testing.assert_array_equal(hist_t.numpy(), np.asarray(hist_j)[0])
+    np.testing.assert_array_equal(hist_t.numpy()[0], np.asarray(hist_j)[0])
     blob_tp = port_serialize(PT.encode_pipeline_torch(port_image(img), port_opts(opts_p), "cpu"))
     blob_jp = serialize(PJ.encode_pipeline_jax(img, opts_p))
     assert blob_tp == blob_jp
