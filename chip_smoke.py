@@ -34,13 +34,14 @@ script exits nonzero without printing a result:
                call; the byte bound of each; the empty cross-block
                exchange loop at 2, 4, 8 and 16 blocks;
   3. main    — the port's public encode -> decode (seeded
-               natural-statistics images), three paths (a-c), each with the
+               natural-statistics images), five paths (a-e), each with the
                launch counts zeroed just before it and read just after it
                (every kernel launched, forward_lift_quantize_pixels and
                encode_scan once an encode, dequantize_inverse_lift_pixels
                once a decode,
-               decode_scan_wave once per non-empty wave, the plain decode
-               row never; every container at the lane count the kernels
+               decode_scan_wave once per non-empty wave of a dense grid
+               decode, decode_steps once every other decode, the plain
+               decode row never; every container at the lane count the kernels
                phase checked). Every image is held
                against the reference by sources that are not the JAX
                package's Python: the C++ oracle decodes the port's
@@ -69,6 +70,20 @@ script exits nonzero without printing a result:
                   oracle cross-decoding two of them both ways; the
                   256-image stream round trip in batches of 64, with
                   device_verify reading 0 mismatches and without;
+               e. the step-tensor codec (kernel D, never kernel 3):
+                  e1 2048x2048 RGB in parallel mode and e2 768x512 RGB
+                  in parity mode, lossless (three timed round trips, the
+                  oracle both ways where it has the mode, the pinned
+                  encode against the jax hash, kernel D bit-equal to its
+                  plain version on the container's wire and on garbage,
+                  timed beside its byte bound and exchange floor); e3 4
+                  256x256 gray parity images in one encode and one
+                  decode batch (one kernel D launch, each container
+                  byte-equal to its own, D at every cluster size); e4
+                  the v7/v8 fixtures; e5 the grid shapes 1x1, 2x511,
+                  511x2 and 16x16, gray and RGB (kernel D where there is
+                  no dense lattice), the oracle where it takes the shape;
+                  e6 16 byte flips of the e2 container;
   4. report  — encode/decode ms and MP/s, per-stage ms at every image, kernel
                3's device time per 2048x2048 RGB decode at the launch rule
                and forced to one block, kernel A's device time with and
@@ -109,6 +124,7 @@ from frave_tpu_torch.entropy.tables import (
     _LAPLACE_GRID_ROWS,
 )
 from frave_tpu_torch.fractal.geometry import get_geometry
+from frave_tpu_torch.fractal.schedule import default_num_lanes, get_schedule
 from frave_tpu_torch.ops import _build
 from frave_tpu_torch.ops import lifting as L
 from frave_tpu_torch.ops import rans_torch as RT
@@ -126,6 +142,12 @@ GRAY = (256, 256)  # (h, w) of its images
 RGB = (512, 768)  # (h, w) of path d's RGB batch
 CORPUS = 256  # bench.py's corpus, four batches of BATCH
 RUNS = 5  # warm runs a batch timing takes the median of
+# path e, the step-tensor codec: (case, image label, mode, the oracle's mode
+# number or None where it has no such mode) at full width
+E_IMAGES = (("e1", "2048x2048 RGB", "parallel", 0), ("e2", "768x512 RGB", "parity", None))
+E_BATCH = 4  # e3: 256x256 gray parity images in one decode batch
+TINY = ((1, 1), (2, 511), (511, 2), (16, 16))  # e5: grid shapes with few cells
+ORACLE_GRID = 2  # the oracle's mode number of grid mode
 
 
 # ---------------------------------------------------------------- oracle
@@ -184,11 +206,14 @@ class Oracle:
             raise AssertionError(f"oracle frif_decode failed (rc={rc})")
         return out
 
-    def encode(self, px: np.ndarray, quality: EncoderQuality, transform: int) -> bytes:
+    def encode(self, px: np.ndarray, quality: EncoderQuality, transform: int,
+               mode: int = ORACLE_GRID) -> bytes:
+        """The oracle's container of px (mode 0: parallel, 2: grid) at its
+        default lane count."""
         arr = np.ascontiguousarray(px, dtype=np.uint8)
         h, w, c = arr.shape
         ptr, n = ctypes.c_void_p(), ctypes.c_int64()
-        rc = self.lib.frif_encode(h, w, c, arr.ctypes.data, quality.value, transform, 0, 2,
+        rc = self.lib.frif_encode(h, w, c, arr.ctypes.data, quality.value, transform, 0, mode,
                                   ctypes.byref(ptr), ctypes.byref(n))
         if rc != 0:
             raise AssertionError(f"oracle frif_encode failed (rc={rc})")
@@ -198,10 +223,10 @@ class Oracle:
             self.lib.frif_free(ptr)
 
 
-def oracle_checks(label, px, blob, port_px, quality, oracle):
+def oracle_checks(label, px, blob, port_px, quality, oracle, mode: int = ORACLE_GRID):
     """The oracle decodes the port's container to the port's pixels (the
     input where lossless); the port decodes the oracle's own container of
-    the image to the oracle's pixels."""
+    the image (in the oracle's `mode`) to the oracle's pixels."""
     lossless = quality == EncoderQuality.LOSSLESS
     t = time.perf_counter()
     if not np.array_equal(oracle.decode(blob), port_px):
@@ -211,7 +236,7 @@ def oracle_checks(label, px, blob, port_px, quality, oracle):
     if not lossless and np.array_equal(port_px, px):
         raise AssertionError(f"{label}: a lossy preset decoded to the input")
     tid = choose_transform(px, "auto", lossless) if px.shape[2] == 3 else 0
-    oblob = oracle.encode(px, quality, tid)
+    oblob = oracle.encode(px, quality, tid, mode)
     ref = oracle.decode(oblob)
     if not np.array_equal(frave_tpu_torch.decode(oblob, device="cuda").data, ref):
         raise AssertionError(f"{label}: the port decodes the oracle's container differently")
@@ -249,11 +274,12 @@ def compare_ref(entry, px, oracle):
     which jax resolves in f32 and the port exactly: each differing context
     must be one (the port's pick the exact argmax, the two gains within
     f32 rounding of each other), is printed with both gains, and then the
-    container must decode to the same pixels on the oracle and the port."""
+    container must decode to the same pixels on the oracle (None: a mode
+    it has not) and the port."""
     label = f"{entry['label']} {entry['quality']}"
     q = EncoderQuality[entry["quality"]]
     opts = EncoderOptions(
-        quality=q, num_lanes=entry["num_lanes"],
+        quality=q, num_lanes=entry["num_lanes"], mode=entry["mode"],
         value_prediction_params=np.asarray(entry["value_prediction_params"], np.float32),
         width_prediction_params=np.asarray(entry["width_prediction_params"], np.float32),
     )
@@ -281,7 +307,7 @@ def compare_ref(entry, px, oracle):
         raise AssertionError(f"{label}: pinned container ({len(blob)} B, {digest}) differs from "
                              f"the reference ({entry['length']} B, {entry['sha256']})")
     port_px = frave_tpu_torch.decode(blob, device="cuda").data
-    if not np.array_equal(oracle.decode(blob), port_px):
+    if oracle is not None and not np.array_equal(oracle.decode(blob), port_px):
         raise AssertionError(f"{label}: near-tie container decodes differently on the oracle")
     if q == EncoderQuality.LOSSLESS and not np.array_equal(port_px, px):
         raise AssertionError(f"{label}: near-tie container is not lossless")
@@ -302,23 +328,26 @@ def zero_counts():
     RT.decode_row.calls = 0
 
 
-def read_counts(label: str, encodes: int, decodes: int, waves: int) -> dict:
+def read_counts(label: str, encodes: int, decodes: int, waves: int, steps: int = 0) -> dict:
     """The counts since zero_counts() over `encodes` encode batches and
     `decodes` decode batches (a one-image call is a batch of one): exactly
     one forward_lift_quantize_pixels and one encode_scan launch an encode
     batch, one dequantize_inverse_lift_pixels a decode batch, one
-    decode_scan_wave per non-empty wave of each decode batch (`waves` in
-    all), whatever the batch size; the plain decode row never."""
+    decode_scan_wave per non-empty wave of each grid decode batch with a
+    dense lattice (`waves` in all), one decode_steps each other decode
+    batch (`steps` in all), whatever the batch size; the plain decode row
+    never."""
     launches = {n: fn.launches for n, fn in WRAPPERS.items()}
     want = {"forward_lift_quantize_pixels": encodes, "encode_scan": encodes,
-            "dequantize_inverse_lift_pixels": decodes, "decode_scan_wave": waves}
+            "dequantize_inverse_lift_pixels": decodes, "decode_scan_wave": waves,
+            "decode_steps": steps}
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
     if RT.decode_row.calls:
         raise AssertionError(f"{label}: the plain decode row ran {RT.decode_row.calls} times")
     print(f"main {label}: launches {json.dumps(launches)} (one kernel A and C an encode "
-          f"batch, one kernel B a decode batch, one kernel 3 per non-empty wave of a decode "
-          f"batch); plain decode rows 0")
+          f"batch, one kernel B a decode batch, one kernel 3 per non-empty wave of a dense "
+          f"grid decode batch, one kernel D each other decode batch); plain decode rows 0")
     return launches
 
 
@@ -644,6 +673,222 @@ def path_d_stream(dev, totals: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- path e
+
+
+def d_report(label: str, r: dict, floor: dict, steps: int) -> None:
+    """Print kernel D's check `r` of one case: its device time beside the
+    byte bound (and the bound's share of it), the exchange floor of
+    `steps` steps at the cluster size it ran (kernel 3's empty exchange
+    loop a row, measured at that size; one block has no exchange) and the
+    plain version's time; records the floor in r."""
+    size = r["cluster"]
+    per_step = floor.get(size, 0.0) / EXCHANGE_ROWS
+    r["steps"], r["exchange_floor_ms"] = steps, steps * per_step
+    print(f"report {label}: decode_steps ({steps} steps, {r['images']} image(s), cluster "
+          f"{size}) max_abs_err {r['max_abs_err']}, device {r['ms']:.4f} ms (wrapper "
+          f"{r['wrapper_ms']:.4f}), byte bound {r['bound_ms']:.5f} ms ({r['bytes']} B at "
+          f"3.35 TB/s, {100.0 * r['bound_ms'] / r['ms']:.3f}% of the device time), exchange "
+          f"floor {r['exchange_floor_ms']:.4f} ms ({per_step * 1e3:.3f} us a step), plain "
+          f"{r['plain_ms']:.3f} ms")
+
+
+def d_check(label: str, cis, dev, kind: str = "valid", timed: bool = True, clusters=(0,),
+            rng=None) -> dict:
+    """Kernel D against decode_steps_plain on the wire of the containers
+    `cis` (one decode batch; kind "garbage": random states and words on
+    their tables): plane, final states and stream position bit-equal."""
+    ops = kernel_check.step_operands(cis, dev, kind, rng, images=len(cis))
+    meta = cis[0].metadata
+    r = kernel_check.check_args(
+        "decode_steps", ops[:-1], ops[-1:], dev, timed=timed, clusters=clusters,
+        info={"shape": [meta.height, meta.width, meta.num_channels, cis[0].mode],
+              "images": len(cis), "kind": kind},
+    )
+    if r["max_abs_err"] != 0:
+        raise AssertionError(f"{label}: decode_steps disagrees with its plain version "
+                             f"({r['errs']})")
+    if "cluster_ms" in r and len(clusters) > 1:
+        print(f"kernel decode_steps {label} device ms by cluster size (0: the rule): "
+              + json.dumps({str(k): round(v, 4) for k, v in r["cluster_ms"].items()}))
+    print(f"main {label}: decode_steps bit-equal to decode_steps_plain ({kind}, clusters "
+          f"{list(clusters)}; plane, final lane states, stream position)")
+    return r
+
+
+def path_e_image(case, label, mode, oracle_mode, oracle, refs, dev, totals, floor, checks):
+    """e1 / e2: one full-width image in a step-tensor mode, lossless: the
+    program (timed), three encode -> decode round trips (one kernel A, C,
+    D and B launch each, kernel 3 none), the oracle both ways where it has
+    the mode, the pinned encode against the jax hash, kernel D bit-equal
+    to its plain version on the container's wire (timed) and on garbage.
+    Returns the container."""
+    h, w, c, seed, _, _ = REF_IMAGES[label]
+    px = natural_image(h, w, c, seed)
+    lab = f"{case} {label} {mode}"
+    opts = EncoderOptions(mode=mode)
+    t = time.perf_counter()
+    prog = PT.get_program(h, w, default_num_lanes(get_schedule(h, w, mode=mode).num_symbols),
+                          c, dev, mode)
+    print(f"program {lab}: CodecProgram.from_host {time.perf_counter() - t:.3f} s "
+          f"({prog.num_steps} steps of {prog.nl} lanes)")
+    first_call(lab, px, opts)
+    zero_counts()
+    blob, out, te, td = timed_round_trips(lab, px, opts, 3, dev)
+    for n, k in read_counts(lab, 3, 3, 0, 3).items():
+        totals[n] += k
+    mp = h * w / 1e6
+    print(f"report {lab}: encode {te * 1e3:.3f} ms ({mp / te:.3f} MP/s) decode {td * 1e3:.3f} "
+          f"ms ({mp / td:.3f} MP/s), median of 3; lossless, {len(blob)} B, "
+          f"{8.0 * len(blob) / (h * w):.4f} bpp")
+    if oracle_mode is None:
+        print(f"main {lab}: the oracle has no {mode} mode; the jax hash and the lossless round "
+              "trip hold the container")
+    else:
+        oracle_checks(lab, px, blob, out, EncoderQuality.LOSSLESS, oracle, oracle_mode)
+    entries = [e for e in refs if e["label"] == f"{label} {mode}"]
+    if not entries:
+        raise AssertionError(f"{lab}: no reference hash in {REFS}")
+    for entry in entries:
+        compare_ref(entry, px, None if oracle_mode is None else oracle)
+    ci = deserialize(blob)
+    r = d_check(lab, [ci], dev)
+    d_report(lab, r, floor, prog.num_steps)
+    checks.setdefault("decode_steps", []).append(r)
+    # garbage at the rule's size, 16 blocks and the fewest blocks D can
+    # run (at most 8192 lanes a block: 8 at 2048x2048 RGB, 1 at 768x512)
+    fewest = 1
+    while c * prog.nl > 8192 * fewest:
+        fewest *= 2
+    d_check(f"{lab} garbage", [ci], dev, "garbage", timed=False,
+            clusters=tuple(dict.fromkeys((0, fewest, 16))), rng=np.random.default_rng(12))
+    return blob
+
+
+def path_e_batch(dev, totals, floor, checks) -> None:
+    """e3: E_BATCH 256x256 gray parity images: one encode batch and one
+    decode batch (one kernel D launch of E_BATCH clusters), each container
+    byte-equal to its one-image container, each decode the image; timed;
+    kernel D bit-equal to its plain version on the batch at every cluster
+    size and on garbage."""
+    lab = f"e3 {E_BATCH}x 256x256 gray parity"
+    px = [natural_image(*GRAY, 1, 200 + i) for i in range(E_BATCH)]
+    imgs = [RasterImage.from_array(p) for p in px]
+    opts = EncoderOptions(mode="parity")
+    solo = [serialize(PT.encode_pipeline_torch(im, opts, dev)) for im in imgs]
+    zero_counts()
+    cis = PT.encode_pipeline_torch_batch(imgs, opts, dev)
+    outs = PT.decode_pipeline_torch_batch(cis, dev)
+    sync(dev)
+    for n, k in read_counts(lab, 1, 1, 0, 1).items():
+        totals[n] += k
+    for i, (ci, one, out) in enumerate(zip(cis, solo, outs)):
+        if serialize(ci) != one:
+            raise AssertionError(f"{lab}: image {i}'s batch container differs from its own")
+        if not np.array_equal(out.data, px[i]):
+            raise AssertionError(f"{lab}: image {i} does not decode to itself")
+    print(f"main {lab}: containers byte-equal to the one-image containers, each decoding to "
+          "its image")
+    mp = E_BATCH * GRAY[0] * GRAY[1] / 1e6
+    enc = sync_times(lambda: PT.encode_pipeline_torch_batch(imgs, opts, dev), dev, runs=3)
+    dec = sync_times(lambda: PT.decode_pipeline_torch_batch(cis, dev), dev, runs=3)
+    print(f"report {lab}: encode " + rate_line(f"B={E_BATCH}", mp, enc) + "; decode "
+          + rate_line(f"B={E_BATCH}", mp, dec))
+    r = d_check(lab, cis, dev, clusters=CLUSTERS)
+    d_report(lab, r, floor, PT.get_program(*GRAY, cis[0].num_lanes, 1, dev, "parity").num_steps)
+    checks.setdefault("decode_steps", []).append(r)
+    d_check(f"{lab} garbage", cis, dev, "garbage", timed=False, clusters=(0, 16),
+            rng=np.random.default_rng(13))
+
+
+def path_e_small(dev, totals, oracle, e2_blob) -> list:
+    """e4: the four v7/v8 fixtures (parallel, 32 lanes) decode to their
+    .npy; e5: the tiny grid shapes, gray and RGB, round-trip (kernel D
+    where the shape has no dense lattice, kernel 3 where it has one), the
+    oracle cross-decoding where it takes the shape; e6: 16 byte flips of
+    the e2 container decode without a crash. Returns the oracle's
+    rejections [(case, reason)]."""
+    zero_counts()
+    times = {}
+    for name in ("v7_gray", "v7_rgb", "v8_gray", "v8_rgb"):
+        blob = open(os.path.join(HERE, "tests", "data", f"{name}.frv"), "rb").read()
+        ref = np.load(os.path.join(HERE, "tests", "data", f"{name}.npy"))
+        secs = []
+        for _ in range(3):
+            sync(dev)
+            t = time.perf_counter()
+            out = frave_tpu_torch.decode(blob, device="cuda").data
+            secs.append(time.perf_counter() - t)
+            if not np.array_equal(out, ref):
+                raise AssertionError(f"e4 golden {name} does not decode to its .npy")
+        times[name] = float(np.median(secs)) * 1e3
+    for n, k in read_counts("e4 golden v7/v8", 0, 12, 0, 12).items():
+        totals[n] += k
+    print("report e4 golden v7/v8 decode ms (median of 3, each to its .npy): "
+          + json.dumps({k: round(v, 3) for k, v in times.items()}))
+
+    rejected = []
+    for h, w in TINY:
+        for c in (1, 3):
+            lab = f"e5 {h}x{w} {'RGB' if c == 3 else 'gray'} grid"
+            px = natural_image(h, w, c, 300 + h + w + c)
+            nl = default_num_lanes(get_schedule(h, w, mode="grid").num_symbols)
+            dense = PT.get_program(h, w, nl, c, dev, "grid").steps is None
+            zero_counts()
+            blob, out, te, td = timed_round_trips(lab, px, EncoderOptions(), 3, dev)
+            waves = 3 * kernel_check.grid_shapes(h, w, c)["waves"] if dense else 0
+            for n, k in read_counts(lab, 3, 3, waves, 0 if dense else 3).items():
+                totals[n] += k
+            print(f"report {lab} ({'dense lattice, kernel 3' if dense else 'step tensors, kernel D'}"
+                  f"): encode {te * 1e3:.3f} ms decode {td * 1e3:.3f} ms, median of 3; lossless, "
+                  f"{len(blob)} B")
+            try:
+                oracle_checks(lab, px, blob, out, EncoderQuality.LOSSLESS, oracle)
+            except AssertionError as e:
+                if not str(e).startswith("oracle frif_"):
+                    raise
+                rejected.append((lab, str(e)))
+                print(f"main {lab}: the oracle rejects the shape ({e})")
+
+    rng = np.random.default_rng(14)
+    meta = deserialize(e2_blob).metadata
+    shape = (meta.height, meta.width, meta.num_channels)
+    decoded = refused = 0
+    for _ in range(16):
+        b = bytearray(e2_blob)
+        b[int(rng.integers(90, len(e2_blob)))] ^= 1 << int(rng.integers(0, 8))
+        try:
+            if frave_tpu_torch.decode(bytes(b), device="cuda").data.shape != shape:
+                raise AssertionError("e6: a corrupted container decoded to another shape")
+            decoded += 1
+        except (SerializeError, ValueError):
+            refused += 1
+    sync(dev)
+    print(f"main e6 robustness: 16 byte flips of the e2 parity container -> {decoded} decoded, "
+          f"{refused} rejected, no crash")
+    return rejected
+
+
+def path_e(dev, totals, oracle, refs, floor, checks) -> list:
+    """The step-tensor codec at full width (e1-e6); returns the oracle's
+    rejections of e5."""
+    t0 = time.perf_counter()
+    for src, report in _build.ptxas_report.items():
+        if src == "rans_step_decode.cu":
+            for line in report.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"report e ptxas {src}: {line.strip()}")
+    blobs = {}
+    for case, label, mode, omode in E_IMAGES:
+        blobs[case] = path_e_image(case, label, mode, omode, oracle, refs, dev, totals, floor,
+                                   checks)
+    checks["decode_steps"][0]["line"] = True  # e1 is the kernels line's
+    path_e_batch(dev, totals, floor, checks)
+    rejected = path_e_small(dev, totals, oracle, blobs["e2"])
+    print(f"phase main steps (path e) took {time.perf_counter() - t0:.1f} s")
+    return rejected
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -675,7 +920,7 @@ def main() -> int:
     preset_label, preset_px = "512x512 gray", natural_image(512, 512, 1, seed=3)
     big_label, big_px = "2048x2048 RGB", natural_image(2048, 2048, 3, seed=4)
     for label, px in {**images, preset_label: preset_px, big_label: big_px}.items():
-        h, w, c, seed, _ = REF_IMAGES[label]
+        h, w, c, seed, _, _ = REF_IMAGES[label]
         if not np.array_equal(px, natural_image(h, w, c, seed)):
             raise AssertionError(f"{label}: not the image the reference hashes were made from")
     all_images = {**images, preset_label: preset_px, big_label: big_px}
@@ -873,6 +1118,10 @@ def main() -> int:
     path_d_stream(dev, totals)
     print(f"phase main batches done at {time.perf_counter() - t_start:.1f} s")
 
+    # ---- 3e. the step-tensor codec
+    rejected = path_e(dev, totals, oracle, refs, floor, checks)
+    print(f"phase main steps done at {time.perf_counter() - t_start:.1f} s")
+
     # ---- 4. report
     rows = [(label, px, runs[label][1], runs[label][2], lossless) for label, px in images.items()]
     rows += [(f"{preset_label} {q.name}", preset_px, preset_runs[q][2], preset_runs[q][3], opts)
@@ -911,18 +1160,22 @@ def main() -> int:
     if foreign:
         raise AssertionError(f"the smoke imported {foreign[:5]}")
 
+    for lab, why in rejected:
+        print(f"report {lab}: the oracle rejects the shape ({why})")
     kernels = []
     for name, (_, _, src, replaces) in kernel_check.KERNELS.items():
         rs = checks[name]
-        at = [r for r in rs if r["ms"] is not None][-1]
+        at = ([r for r in rs if r.get("line")] or [r for r in rs if r["ms"] is not None])[-1]
         entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                  "launches": totals[name],
                  "max_abs_err": max(r["max_abs_err"] for r in rs),
                  "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
                  "bound_by": "bytes", "library_ms": None, "shape": at["shape"],
                  "images": at["images"]}
-        if name == "decode_scan_wave":
+        if name in kernel_check.CLUSTERED:
             entry["cluster"] = at["cluster"]
+        if name == "decode_steps":
+            entry["steps"], entry["exchange_floor_ms"] = at["steps"], at["exchange_floor_ms"]
         kernels.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -3,15 +3,17 @@ NVIDIA H100.
 
 A port of the JAX package ``frave_tpu``, which stays beside it as the
 reference. The port stands alone: it imports nothing of ``frave_tpu``.
-Its host-side numpy modules (fractal geometry, lattice grids and the
-grid schedule, host entropy tables, the frif container, options, images)
-are its own copies of the JAX package's, with the grid-mode parts only;
-everything that ran on the TPU is rewritten here on torch tensors, and
-the TPU's Pallas kernels (the two lifting kernels and the whole-wave rANS
-decode) and the rANS encode loop are CUDA C++ kernels under ``csrc/``
-(built with nvcc on first use, see ``ops/_build.py``).
+Its host-side numpy modules (fractal geometry, lattice grids, the
+schedules of every mode, host entropy tables, the frif container,
+options, images) are its own copies of the JAX package's; everything that
+ran on the TPU is rewritten here on torch tensors, and the TPU's Pallas
+kernels (the two lifting kernels and the whole-wave rANS decode), the
+rANS encode loop and the step-tensor decode scan are CUDA C++ kernels
+under ``csrc/`` (built with nvcc on first use, see ``ops/_build.py``).
 
-Public API (grid mode, the default of ``EncoderOptions``)::
+Public API (every mode: ``EncoderOptions(mode=...)`` "grid", the default,
+"parallel" or "parity"; the decoder reads the mode, and the v7/v8
+legacy containers, from the container)::
 
     blob = frave_tpu_torch.encode(img, opts=None, device="cuda")
     out = frave_tpu_torch.decode(blob, device="cuda")   # a RasterImage

@@ -1,1 +1,1 @@
-"""Codec drivers and the device pipeline (grid mode, one image)."""
+"""Codec drivers and the device pipeline (every mode, same-shape batches)."""

@@ -9,7 +9,7 @@ from .pipeline_torch import decode_pipeline_torch
 
 
 class FRIDecoder:
-    """Decodes grid-mode frif containers on one torch device."""
+    """Decodes frif containers (v7-v9, every mode) on one torch device."""
 
     def __init__(self, device="cuda"):
         self.device = device

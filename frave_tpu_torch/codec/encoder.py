@@ -15,7 +15,7 @@ from .pipeline_torch import encode_pipeline_torch
 
 
 class FRIEncoder:
-    """Encodes images on one torch device (grid mode)."""
+    """Encodes images on one torch device, in the mode of its options."""
 
     def __init__(self, opts: Optional[EncoderOptions] = None, device="cuda"):
         if opts is not None and not isinstance(opts, EncoderOptions):

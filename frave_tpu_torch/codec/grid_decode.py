@@ -219,6 +219,24 @@ def _to_grid(wd: WaveDev, values: torch.Tensor, base=None) -> torch.Tensor:
     return flat.reshape((C,) + wd.shape)
 
 
+def wire_tables(lap, wire_bits, offpk, scpk):
+    """The decode tables of a batch's wire fields (context_from_wire twin:
+    zero histogram, wire bits, wire off-mask, wire scale indices):
+    wire_bits / scpk [B, C, CA] and offpk [B, C, CA, 32] int64 on the
+    device, lap the Laplace grid -> rans_torch.decode_tables ([B, C, ...])."""
+    B, C = wire_bits.shape[:2]
+    shifts32 = torch.arange(32, device=wire_bits.device, dtype=_I64)
+    off_mask = (((offpk[..., None] >> shifts32) & 1) > 0).reshape(
+        B, C, CONTEXT_AMOUNT, ALPHABET_SIZE
+    )
+    zero_hist = torch.zeros((B, C, CONTEXT_AMOUNT, ALPHABET_SIZE), dtype=_I64,
+                            device=wire_bits.device)
+    bits, _, cdfs, _ = finalize_contexts_device(
+        zero_hist, lap, bits0=wire_bits, off_mask_in=off_mask, scale_idx=scpk,
+    )
+    return decode_tables(cdfs, bits)
+
+
 def build_grid_decode(prog, geo, waves: List[WaveDev]):
     """The dense decode for a grid-mode CodecProgram. Returns
     decode(states [B, C, NL] int64, stream [B, W] int32, wire_bits
@@ -235,23 +253,12 @@ def build_grid_decode(prog, geo, waves: List[WaveDev]):
     if geo.depth != 9:
         raise NotImplementedError(f"depth {geo.depth}: kernel B takes depth 9 only")
     dev = prog.device
-    shifts32 = torch.arange(32, device=dev, dtype=_I64)
 
     def decode(states, stream, wire_bits, offpk, scpk, vparams, wparams, qdiv, tids,
                stages=None):
         B = states.shape[0]
         BC = B * C
-        # --- wire tables (context_from_wire twin: zero hist, wire bits,
-        # wire off-mask, wire scale indices), [B, C, ...]
-        off_mask = (((offpk[..., None] >> shifts32) & 1) > 0).reshape(
-            B, C, CONTEXT_AMOUNT, ALPHABET_SIZE
-        )
-        zero_hist = torch.zeros((B, C, CONTEXT_AMOUNT, ALPHABET_SIZE), dtype=_I64, device=dev)
-        bits, _, cdfs, _ = finalize_contexts_device(
-            zero_hist, prog.lap, bits0=wire_bits, off_mask_in=off_mask,
-            scale_idx=scpk,
-        )
-        tabs = decode_tables(cdfs, bits)
+        tabs = wire_tables(prog.lap, wire_bits, offpk, scpk)
         if stages is not None:
             stages.mark("decode/tables")
 

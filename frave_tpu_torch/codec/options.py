@@ -46,7 +46,9 @@ class EncoderOptions:
 
     num_lanes: interleaved rANS lanes; None picks
     schedule.default_num_lanes (then the rate-adaptive re-encode).
-    mode: the context-model mode; the port runs "grid" only.
+    mode: the context-model mode: "grid" (the default), "parallel" (the
+    JAX package's default schedule) or "parity" (the reference codec's
+    causal context model).
     color_transform: RGB coding transform (codec/channel_transform.py):
     "auto" (the cheapest by a gradient proxy), "none", "subtract-green",
     "ycocg" (lossless only) or "trial" (encode every candidate, keep the

@@ -1,5 +1,5 @@
 """The codec's device pipeline in PyTorch: the port of
-frave_tpu/codec/pipeline_jax.py, grid mode, over same-shape batches.
+frave_tpu/codec/pipeline_jax.py, every mode, over same-shape batches.
 
 A batch is the JAX package's: images of one shape and colorspace, each
 with its own channel transform (and, on decode, its own quantizer), one
@@ -11,16 +11,22 @@ the whole batch in one launch. The one-image calls are batches of one.
 
 Encode (CodecProgram.encode_exec): channel transform, leaf gather,
 forward lifting + quantize (one launch, kernel A) -> statistics (the step-tensor
-gather below K = 2^18 symbols, the dense shift-plane path of
-grid_decode.build_grid_encode from there up) -> Gram/Cholesky predictor
+gather; in grid mode from K = 2^18 symbols up the dense shift-plane path of
+grid_decode.build_grid_encode) -> Gram/Cholesky predictor
 fits rounded to the f16 wire values -> contexts and zig-zag symbols ->
-exact histogram -> context tables -> reverse rANS scan (kernel C) ->
-stream compaction per image -> one packed int32 row per image (headers +
-stream) that the host unpacks into a container.
+exact histogram -> context tables -> reverse rANS scan (kernel C) over
+the program's row map (grid mode: each wave's rows; the parallel and
+parity modes: K symbols packed tightly) -> stream compaction per image
+(grid mode: the flat grid order; the others: schedule.get_stream_perm's
+decode order) -> one packed int32 row per image (headers + stream) that
+the host unpacks into a container.
 
-Decode (CodecProgram.decode_exec): table regeneration -> per wave: tap
-planes, contexts, the rANS rows (kernel 3) -> dequantize + inverse
-lifting, clamp, inverse transform and pixel scatter (kernel B).
+Decode (CodecProgram.decode_exec): table regeneration -> grid mode with a
+dense lattice: per wave, tap planes, contexts, the rANS rows (kernel 3);
+every other program (the parallel and parity modes, and grid-mode shapes
+under ~32 px a side): every step of the step tensors in one launch of
+kernel D (ops/step_decode.py) -> dequantize + inverse lifting, clamp,
+inverse transform and pixel scatter (kernel B).
 
 Everything the JAX program uploads once per shape (geometry gathers,
 masks, schedule tensors, Laplace grid, wave plans) is built from the same
@@ -54,15 +60,25 @@ from ..fractal.geometry import BASE_FRAC_DEPTH, get_geometry
 from ..fractal.lattice import DenseGridUnavailable
 from ..fractal.schedule import (
     default_num_lanes,
+    get_lane_steps,
     get_schedule,
+    get_stream_perm,
     grid_row_lane,
     rate_adaptive_lanes,
 )
 from ..images import AnsContextTables, ChannelData, ColorSpace, CompressedImage, RasterImage
 from ..ops import torch_ops as T
-from ..ops.lifting import forward_lift_quantize_pixels
-from ..ops.rans_torch import encode_scan, pack_u16_pairs, row_map, stream_compact_grid
+from ..ops.lifting import dequantize_inverse_lift_pixels, forward_lift_quantize_pixels
+from ..ops.rans_torch import (
+    encode_scan,
+    pack_u16_pairs,
+    row_map,
+    stream_compact,
+    stream_compact_grid,
+)
+from ..ops.step_decode import decode_steps, step_tensors
 from .channel_transform import choose_transform
+from .grid_decode import build_grid_decode, build_grid_encode, get_wave_devs, wire_tables
 from .container import deserialize, serialize
 from .options import EncoderOptions, quantization_matrix
 
@@ -139,6 +155,29 @@ def pixel_inverse(leaf_pix: np.ndarray, hw: int) -> np.ndarray:
     return inv
 
 
+def check_step_order(steps, n_slots: int) -> None:
+    """Raise unless the step tensors store each plane slot at most once and
+    every tap of step s reads a slot that an earlier step stores, or that
+    no step stores (it reads 0). Kernel D needs this: it stores a step's
+    values before the step's exchange barrier and reads the next step's
+    taps after it, and nothing orders a read against a store of the same
+    step."""
+    coef = steps.step_coef
+    act = coef >= 0
+    s_of = np.nonzero(act)[0]
+    slots = coef[act].astype(np.int64)
+    if slots.size and (slots.max() >= n_slots or np.unique(slots).size != slots.size):
+        raise AssertionError("a plane slot is stored twice, or past the plane")
+    written = np.full(n_slots, np.iinfo(np.int64).max, dtype=np.int64)
+    written[slots] = s_of
+    nb = steps.step_nbr
+    taps = nb >= 0
+    reader = np.broadcast_to(np.arange(nb.shape[0])[:, None, None], nb.shape)[taps]
+    stored = written[np.clip(nb[taps], 0, n_slots - 1)]
+    if np.any((stored >= reader) & (stored != np.iinfo(np.int64).max)):
+        raise AssertionError("a step reads a slot that the same or a later step stores")
+
+
 def _gram_solve(G: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Regularised Cholesky solve of batched 6x6 normal equations. Where
     the factorisation fails the result is NaN, as XLA's Cholesky gives."""
@@ -210,32 +249,41 @@ def fit_predictors(Xs_l, ys_l, overrides):
 
 
 class CodecProgram:
-    """The codec for one (height, width, num_lanes, channels) on one
-    device, grid mode, over same-shape batches of any size. Build with
+    """The codec for one (height, width, num_lanes, channels, mode) on one
+    device, over same-shape batches of any size. Build with
     CodecProgram.from_host."""
 
     @classmethod
-    def from_host(cls, height: int, width: int, nl: int, channels: int, device):
+    def from_host(cls, height: int, width: int, nl: int, channels: int, device,
+                  mode: str = "grid"):
         """Build every device constant from the numpy structures that
         pipeline_jax.CodecProgram uploads: the pixel gather and masks, the
         schedule tensors, the pixel map (leaf_pix and pix_inv), the
-        Laplace grid, the grid-row map and the wave plans. Shapes with no
-        dense lattice maps (under ~32 px a side) raise
-        NotImplementedError: their step-tensor decoder is not ported."""
-        from .grid_decode import build_grid_decode, build_grid_encode, get_wave_devs
-
+        Laplace grid and the row map; in grid mode the wave plans of the
+        dense decode, or, at shapes with no dense lattice (under ~32 px a
+        side), the grid lane steps of kernel D; in the parallel and parity
+        modes the lane steps and the stream permutation. An unknown mode
+        raises ValueError (schedule.build_schedule)."""
         self = cls()
         dev = resolve_device(device)
         depth = BASE_FRAC_DEPTH
         C, h, w = channels, height, width
         geo = get_geometry(h, w, depth)
-        sched = get_schedule(h, w, depth, mode="grid")
-        _, _, R, _ = grid_row_lane(sched, nl)
+        sched = get_schedule(h, w, depth, mode=mode)
+        K = sched.num_symbols
+        if mode == "grid":
+            # every wave's symbols are contiguous in schedule order and
+            # fill rows of NL lanes back to back (grid_row_lane)
+            _, _, R, _ = grid_row_lane(sched, nl)
+            row_k0, row_len = row_map(sched.wave_sizes, nl)
+        else:
+            # K symbols packed tightly: row r holds [r*NL, (r+1)*NL)
+            R = -(-K // nl)
+            row_k0, row_len = row_map([K], nl)
         Tn, N = geo.num_tiles, geo.nodes_per_tile
         n_slots = Tn * N
-        K = sched.num_symbols
         self.height, self.width, self.depth = h, w, depth
-        self.nl, self.channels, self.device = nl, C, dev
+        self.nl, self.channels, self.device, self.mode = nl, C, dev, mode
         self.num_tiles, self.num_symbols, self.rows = Tn, K, R
         self.n_slots = n_slots
         self.kc = K * C
@@ -273,12 +321,9 @@ class CodecProgram:
             if idx.size != hi - lo:
                 raise AssertionError(f"predictor group {g} not contiguous")
             self.group_ranges.append((lo, hi))
-        # grid layout: every wave's symbols are contiguous in schedule
-        # order and fill rows of NL lanes back to back (grid_row_lane);
-        # kernel C reads the symbols in schedule order through this map
-        row_k0, row_len = row_map(sched.wave_sizes, nl)
+        # kernel C reads the symbols in schedule order through the row map
         if row_k0.shape[0] != R or int(row_len.sum()) != K:
-            raise AssertionError("row map disagrees with grid_row_lane")
+            raise AssertionError("row map disagrees with the row count")
         self.row_k0 = put(row_k0, _I32)
         self.row_len = put(row_len, _I32)
         # the pixel map: kernel A gathers leaf i from pixel leaf_pix[i] and
@@ -290,18 +335,34 @@ class CodecProgram:
         self.node_mask = put(geo.coef_mask, torch.bool)
         self.node_mask_u8 = put(geo.coef_mask, torch.uint8)
 
-        try:
-            waves = get_wave_devs(geo, sched, nl, n_slots, dev)
-        except DenseGridUnavailable as e:
-            raise NotImplementedError(
-                f"{h}x{w}: no dense lattice grid at this shape; the "
-                "step-tensor decoder it needs is not ported"
-            ) from e
-        self.decode_fn = build_grid_decode(self, geo, waves)
-        genc = os.environ.get("FRAVE_GRID_ENC", "1")
         self.grid_enc = None
-        if genc == "force" or (genc == "1" and K >= GRID_ENC_MIN_K):
-            self.grid_enc = build_grid_encode(self, geo, sched, waves)
+        self.steps = self.perm = None
+        self.num_steps = 0
+        waves = None
+        if mode == "grid":
+            try:
+                waves = get_wave_devs(geo, sched, nl, n_slots, dev)
+            except DenseGridUnavailable:
+                pass  # tiny shapes: the step tensors below decode the same wire
+        if waves is not None:
+            self.decode_fn = build_grid_decode(self, geo, waves)
+            genc = os.environ.get("FRAVE_GRID_ENC", "1")
+            if genc == "force" or (genc == "1" and K >= GRID_ENC_MIN_K):
+                self.grid_enc = build_grid_encode(self, geo, sched, waves)
+            return self
+        lane_steps = get_lane_steps(h, w, nl, depth, mode)
+        if lane_steps.rows_are_steps != (mode == "grid") or (
+            mode == "grid" and lane_steps.num_steps != R
+        ):
+            raise AssertionError("lane steps disagree with the row map")
+        check_step_order(lane_steps, n_slots)
+        self.steps = step_tensors(lane_steps, dev)
+        self.num_steps = lane_steps.num_steps
+        if mode != "grid":
+            # decode rank -> emission-grid slot (grid mode's decode order
+            # is the flat grid order itself)
+            self.perm = put(get_stream_perm(h, w, nl, depth, mode, C))
+        self.decode_fn = self._decode_steps
         return self
 
     def _overrides(self, overrides, images: int):
@@ -402,7 +463,10 @@ class CodecProgram:
         )
         if stages is not None:
             stages.mark("encode/rans")
-        stream, total = stream_compact_grid(words, flags, self.kc)  # [B, K*C], [B]
+        if self.perm is None:
+            stream, total = stream_compact_grid(words, flags, self.kc)  # [B, K*C], [B]
+        else:
+            stream, total = stream_compact(words, flags, self.perm, self.kc)
         spk = pack_u16_pairs(stream)  # [B, ceil(K*C/2)]
         om = off_mask.reshape(B, C, CONTEXT_AMOUNT, ALPHABET_SIZE // 32, 32).to(_I64)
         ompk = (om << torch.arange(32, device=dev, dtype=_I64)).sum(-1)
@@ -422,6 +486,33 @@ class CodecProgram:
         if stages is not None:
             stages.mark("encode/compact")
         return packed, hist.to(_I32)
+
+    def step_operands(self, states, stream, wire_bits, offpk, scales, vparams, wparams):
+        """A batch's wire fields (as decode_exec takes them) -> the operands
+        of ops/step_decode.decode_steps over this program's step tensors:
+        (x, gptr, steps, vparams, wparams, stream, tabs, n_slots)."""
+        if self.steps is None:
+            raise ValueError("this program decodes with the dense grid waves, not steps")
+        tabs = wire_tables(self.lap, wire_bits, offpk, scales)
+        gptr = torch.zeros((states.shape[0],), dtype=_I64, device=self.device)
+        return (states, gptr, self.steps, vparams, wparams, stream, tabs, self.n_slots)
+
+    def _decode_steps(self, states, stream, wire_bits, offpk, scales, vparams, wparams,
+                      qdiv, tids, stages=None):
+        """decode_exec over the step tensors: the wire tables, every step in
+        one launch of kernel D, then kernel B on the plane it wrote."""
+        ops = self.step_operands(states, stream, wire_bits, offpk, scales, vparams, wparams)
+        if stages is not None:
+            stages.mark("decode/tables")
+        plane, _, _ = decode_steps(*ops)
+        if stages is not None:
+            stages.mark("decode/steps")
+        out = dequantize_inverse_lift_pixels(
+            plane, self.node_mask_u8, self.leaf_mask_u8, qdiv, self.leaf_pix, self.pix_inv, tids,
+        )
+        if stages is not None:
+            stages.mark("decode/pixels")
+        return out
 
     def decode_exec(self, states, stream, wire_bits, offpk, scales, vparams,
                     wparams, qdiv, tids, stages=None):
@@ -443,14 +534,15 @@ _program_cache: Dict[tuple, CodecProgram] = {}
 _cache_lock = threading.Lock()
 
 
-def get_program(height, width, nl, channels, device) -> CodecProgram:
-    """Cached CodecProgram.from_host per (shape, lanes, channels, device)."""
+def get_program(height, width, nl, channels, device, mode: str = "grid") -> CodecProgram:
+    """Cached CodecProgram.from_host per (shape, lanes, channels, device,
+    mode)."""
     dev = resolve_device(device)
-    key = (height, width, nl, channels, str(dev))
+    key = (height, width, nl, channels, str(dev), mode)
     with _cache_lock:
         p = _program_cache.get(key)
     if p is None:
-        p = CodecProgram.from_host(height, width, nl, channels, dev)
+        p = CodecProgram.from_host(height, width, nl, channels, dev, mode)
         with _cache_lock:
             _program_cache[key] = p
     return p
@@ -574,8 +666,6 @@ def _encode_dispatch(images: List[RasterImage], opts: EncoderOptions, device,
     """Upload + queue the fused encode of one same-shape batch without
     waiting for it: the host resolves each image's transform (`tids`
     forces them, one id 0-3 an RGB image), the device does the rest."""
-    if opts.mode != "grid":
-        raise NotImplementedError(f"mode={opts.mode!r}: only grid mode is ported")
     if not images:
         raise ValueError("an encode batch needs at least one image")
     meta = images[0].metadata
@@ -590,9 +680,9 @@ def _encode_dispatch(images: List[RasterImage], opts: EncoderOptions, device,
         tids = [choose_transform(im.data, opts.color_transform, lossless) for im in images]
     elif len(tids) != len(images) or not all(0 <= t <= 3 for t in tids):
         raise ValueError("tids must give one transform id 0-3 an image")
-    sched = get_schedule(meta.height, meta.width, mode="grid")
+    sched = get_schedule(meta.height, meta.width, mode=opts.mode)
     nl = opts.num_lanes or default_num_lanes(sched.num_symbols)
-    prog = get_program(meta.height, meta.width, nl, C, device)
+    prog = get_program(meta.height, meta.width, nl, C, device, opts.mode)
     qm = quantization_matrix(opts.quality)
     px = np.stack([im.data.reshape(-1, C) for im in images])  # [B, HW, C] uint8
     pixels, qdiv, tids_dev = _upload(
@@ -626,7 +716,7 @@ def _encode_finish(enc: _EncodeBatch, opts: EncoderOptions) -> List[CompressedIm
                 quality=opts.quality.value,
                 num_lanes=prog.nl,
                 quantization_matrix=np.asarray(enc.qm, dtype=np.uint16),
-                mode="grid",
+                mode=prog.mode,
                 stream=stream,
                 transform=enc.tids[b],
                 est_payload_bytes=est_payload,
@@ -770,9 +860,7 @@ def _decode_dispatch(images: List[CompressedImage], device, stages=None) -> _Dec
     for im in images:
         if im.metadata != meta or im.num_lanes != nl or im.mode != mode:
             raise ValueError("batch must share shape, colorspace, lanes and mode")
-    if mode != "grid":
-        raise NotImplementedError(f"mode={mode!r}: only grid mode is ported")
-    prog = get_program(meta.height, meta.width, nl, meta.num_channels, device)
+    prog = get_program(meta.height, meta.width, nl, meta.num_channels, device, mode)
     states, streams, bits, offpk, scales, vp, wp, qdiv, tids = assemble_wire_batch(images, nl)
     args = _upload(
         (states.astype(np.int64), streams.astype(np.int32), bits.astype(np.int64),
@@ -800,10 +888,11 @@ def _decode_finish(dec: _DecodeBatch, stages=None) -> List[RasterImage]:
 def decode_pipeline_torch_batch(
     images: List[CompressedImage], device="cuda", stages=None
 ) -> List[RasterImage]:
-    """Decode a batch of same-shape grid-mode containers on `device` (they
-    may mix quality presets and transforms): one dispatch, one launch of
-    kernel 3 per non-empty wave and one of kernel B for the batch, one
-    fetch."""
+    """Decode a batch of same-shape containers of one mode and lane count
+    on `device` (they may mix quality presets and transforms): one
+    dispatch; one launch of kernel 3 per non-empty wave (grid mode with a
+    dense lattice) or one of kernel D (every other program), and one of
+    kernel B, for the batch; one fetch."""
     return _decode_finish(_decode_dispatch(images, device, stages), stages)
 
 
@@ -825,7 +914,7 @@ def decode_pipeline_torch_stream(
 
 
 def decode_pipeline_torch(image: CompressedImage, device="cuda", stages=None) -> RasterImage:
-    """Decode one grid-mode container on `device` (a batch of one)."""
+    """Decode one container on `device` (a batch of one)."""
     return decode_pipeline_torch_batch([image], device, stages)[0]
 
 

@@ -16,7 +16,9 @@
 // cross-SM exchanges one after another, whatever the bandwidth
 // (chip_smoke.py times an empty exchange loop at each cluster size).
 //
-// Design: one cluster of S blocks of 1024 threads (S = 1, 2, 4, 8, 16)
+// Design (the symbol search, the rank exchange and the launch helpers are
+// rans_common.cuh's, shared with kernel D, rans_step_decode.cu): one
+// cluster of S blocks of 1024 threads (S = 1, 2, 4, 8, 16)
 // per wave, launched with cudaLaunchKernelEx. Block k owns a contiguous
 // range of the flat rank index i = c * NL + n (the stream's rank order),
 // so its renorm words are contiguous in the stream; thread t owns lanes
@@ -72,38 +74,12 @@
 // where a cluster barrier costs more than the search it splits, and 4 at
 // 768x512 RGB (6,144 lanes), 16 at 2048x2048 RGB (49,152).
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
-#include <mutex>
-
-namespace cg = cooperative_groups;
+#include "rans_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
 constexpr int kPerThread = 8;
 constexpr int kTile = kThreads * kPerThread;
-constexpr int kMaxCluster = 16;
-// lanes a block aims at under the launch rule (measured on an H100:
-// 2048 lanes a block at 1 or 2 lanes a thread beat larger blocks; PERF.md)
-constexpr int kBlockLanes = 2048;
-constexpr int kAlphabet = 1024;
-// shared-memory layout of a cdf staircase: 32 windows of 32 u16 entries,
-// each window padded to 34 slots and each row to 32 * 34 + 2, so that
-// window starts (the coarse search levels) and rows (the contexts) fall in
-// different banks — unpadded, every level-1..5 probe of every context
-// lands in banks 0 and 16 and the search serialises on bank conflicts
-constexpr int kWin = 32;
-constexpr int kWinStride = kWin + 2;
-constexpr int kRowStride = kAlphabet / kWin * kWinStride + 2;
-constexpr int kMaxBits = 14;
-constexpr uint32_t kRansL = 1u << 16;
-constexpr unsigned kFull = 0xFFFFFFFFu;
-static_assert(kWarps == 32, "the second scan level is one warp wide");
-static_assert(kMaxCluster <= 32, "the block totals are scanned by one warp");
 
 struct WaveArgs {
   const int64_t* x_in;
@@ -140,30 +116,6 @@ __device__ __forceinline__ WaveArgs image_args(const WaveArgs& a, int64_t img) {
   o.gptr_out += img;
   if (o.xwork != nullptr) o.xwork += img * cnl;
   return o;
-}
-
-__host__ __device__ constexpr size_t align16(size_t n) {
-  return (n + 15) & ~static_cast<size_t>(15);
-}
-
-__host__ __device__ constexpr size_t table_bytes(int nctx) {
-  return align16(static_cast<size_t>(nctx) * 4) +
-         align16(static_cast<size_t>(nctx) * kRowStride * 2);
-}
-
-__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
-
-__device__ __forceinline__ int cdf_slot(int e) {
-  return (e / kWin) * kWinStride + e % kWin;
-}
-
-__device__ __forceinline__ int warp_incl_scan(int v, int lane) {
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(kFull, v, d);
-    if (lane >= d) v += y;
-  }
-  return v;
 }
 
 // P consecutive u32 from p[i0 ..]: 16-byte loads where the run is whole
@@ -228,22 +180,11 @@ __device__ __forceinline__ uint32_t decodep(const uint32_t* s_bits, const uint16
   uint32_t need_m = 0;
 #pragma unroll
   for (int v = 0; v < P; ++v) {
-    const uint32_t x = xv[v];
     const int b = min(max(static_cast<int>(bk[v]), 0), a.contexts - 1);
     const int ctx = min(c, a.channels - 1) * a.contexts + b;
-    const uint32_t bi = s_bits[ctx];
-    const uint32_t top = 1u << bi;
-    const uint32_t slot = x & (top - 1u);
-    const uint16_t* row = s_cdf + ctx * kRowStride;
-    int s = 0;
-#pragma unroll
-    for (int step = kAlphabet / 2; step > 0; step >>= 1)
-      if (row[cdf_slot(s + step)] <= slot) s += step;
-    const uint32_t cd = row[cdf_slot(s)];
-    const uint32_t nx =
-        min(s + 1 < kAlphabet ? static_cast<uint32_t>(row[cdf_slot(s + 1)]) : top, top);
-    const uint32_t x2 = (nx - cd) * (x >> bi) + slot - cd;
-    sv[v] = static_cast<uint32_t>(s);
+    uint32_t sym;
+    const uint32_t x2 = decode_symbol(s_bits, s_cdf, ctx, xv[v], &sym);
+    sv[v] = sym;
     if (act_m >> v & 1u) {
       xv[v] = x2;
       if (x2 < kRansL) need_m |= 1u << v;
@@ -254,70 +195,6 @@ __device__ __forceinline__ uint32_t decodep(const uint32_t* s_bits, const uint16
     }
   }
   return need_m;
-}
-
-// Load the clamped tables into this block's shared memory.
-__device__ __forceinline__ void load_tables(const WaveArgs& a, uint32_t* s_bits,
-                                            uint16_t* s_cdf) {
-  const int nctx = a.channels * a.contexts;
-  // the clamps repeat decode_tables' (bits <= 14, cdf <= 2^14): no shift
-  // past 31 and no u16 truncation, whatever the caller passes
-  for (int k = threadIdx.x; k < nctx; k += kThreads)
-    s_bits[k] = static_cast<uint32_t>(min(max(a.bits[k], 0), kMaxBits));
-  for (int k = threadIdx.x; k < nctx * kAlphabet; k += kThreads)
-    s_cdf[k / kAlphabet * kRowStride + cdf_slot(k % kAlphabet)] =
-        static_cast<uint16_t>(min(max(a.cdf[k], 0), 1 << kMaxBits));
-}
-
-// The words of the thread's renorming lanes are consecutive from `rank`:
-// the loads go out together, clamped, and shift into the states.
-template <int P>
-__device__ __forceinline__ void take_words(const WaveArgs& a, int64_t rank,
-                                           uint32_t need_m, uint32_t (&xv)[P]) {
-  uint32_t wv[P];
-#pragma unroll
-  for (int v = 0; v < P; ++v) {
-    const int64_t idx = rank < 0 ? 0 : (rank >= a.stream_len ? a.stream_len - 1 : rank);
-    wv[v] = (need_m >> v & 1u) ? static_cast<uint32_t>(a.stream[idx]) : 0u;
-    rank += need_m >> v & 1u;
-  }
-#pragma unroll
-  for (int v = 0; v < P; ++v)
-    if (need_m >> v & 1u) xv[v] = (xv[v] << 16) | wv[v];
-}
-
-// The row's cross-block exchange: every block's total `btot` in, this
-// block's base rank and the row total out (S = 1: 0 and btot).
-__device__ __forceinline__ void exchange(int* s_tot, int par, int btot, int lane,
-                                         int64_t* base, int64_t* rowtot) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int S = static_cast<int>(cluster.num_blocks());
-  if (S == 1) {
-    *base = 0;
-    *rowtot = btot;
-    return;
-  }
-  if (threadIdx.x == 0) s_tot[par] = btot;
-  cluster.sync();
-  int v = 0;
-  if (lane < S) v = *cluster.map_shared_rank(s_tot + par, lane);
-  const int vincl = warp_incl_scan(v, lane);
-  const int rb = static_cast<int>(cluster.block_rank());
-  const int before = __shfl_sync(kFull, vincl, (rb + 31) & 31);
-  *base = rb ? before : 0;
-  *rowtot = __shfl_sync(kFull, vincl, 31);
-}
-
-// The block's exclusive rank of this thread's count `cnt` (its warp's
-// inclusive scan is `incl`) and the block total, from s_warp[buf].
-__device__ __forceinline__ int block_scan(int (*s_warp)[kWarps], int buf, int cnt,
-                                          int incl, int lane, int warp, int* total) {
-  if (lane == 31) s_warp[buf][warp] = incl;
-  __syncthreads();
-  const int w = warp_incl_scan(s_warp[buf][lane], lane);
-  const int before = __shfl_sync(kFull, w, (warp + 31) & 31);
-  *total = __shfl_sync(kFull, w, 31);
-  return (warp ? before : 0) + incl - cnt;
 }
 
 // P > 0: one tile of kThreads * P lanes a block, P lanes a thread with
@@ -332,7 +209,7 @@ __global__ void __launch_bounds__(kThreads, 1) rans_decode_wave_kernel(const Wav
   const size_t tab = table_bytes(nctx);
   uint32_t* s_bits = reinterpret_cast<uint32_t*>(smem);
   uint16_t* s_cdf = reinterpret_cast<uint16_t*>(smem + align16(static_cast<size_t>(nctx) * 4));
-  load_tables(a, s_bits, s_cdf);
+  load_tables(a.cdf, a.bits, nctx, s_bits, s_cdf);
 
   const int64_t cnl = static_cast<int64_t>(a.channels) * a.lanes;
   const int blk = static_cast<int>(cg::this_cluster().block_rank());
@@ -378,8 +255,8 @@ __global__ void __launch_bounds__(kThreads, 1) rans_decode_wave_kernel(const Wav
       int btot = 0;
       const int local = block_scan(s_warp, par, cnt, incl, lane, warp, &btot);
       int64_t base = 0, rowtot = 0;
-      exchange(s_tot, par, btot, lane, &base, &rowtot);
-      if (need_m) take_words<P>(a, g + base + local, need_m, xv);
+      exchange<false>(s_tot, par, btot, lane, &base, &rowtot);
+      if (need_m) take_words<P>(a.stream, a.stream_len, g + base + local, need_m, xv);
       g += rowtot;
     }
 #pragma unroll
@@ -435,7 +312,7 @@ __global__ void __launch_bounds__(kThreads, 1) rans_decode_wave_kernel(const Wav
         buf ^= 1;
       }
       int64_t base = 0, rowtot = 0;
-      exchange(s_tot, r & 1, local, lane, &base, &rowtot);
+      exchange<false>(s_tot, r & 1, local, lane, &base, &rowtot);
       // pass B: the words, each thread on its own lanes only
       tile = 0;
       for (int64_t b0 = lo; b0 < hi; b0 += kTile, ++tile) {
@@ -445,7 +322,7 @@ __global__ void __launch_bounds__(kThreads, 1) rans_decode_wave_kernel(const Wav
         const int64_t i0 = b0 + static_cast<int64_t>(t) * Q;
         uint32_t xv[Q];
         loadp<Q>(xs, i0 - lo, hi - lo, xv);
-        take_words<Q>(a, g + base + (st >> 8), need_m, xv);
+        take_words<Q>(a.stream, a.stream_len, g + base + (st >> 8), need_m, xv);
         storep<Q>(xs, i0 - lo, need_m, xv);
       }
       g += rowtot;
@@ -470,7 +347,7 @@ __global__ void __launch_bounds__(kThreads, 1) exchange_loop_kernel(int iters, i
   int64_t acc = 0;
   for (int r = 0; r < iters; ++r) {
     int64_t base = 0, rowtot = 0;
-    exchange(s_tot, r & 1, r + lane, lane, &base, &rowtot);
+    exchange<false>(s_tot, r & 1, r + lane, lane, &base, &rowtot);
     acc += base + rowtot;
   }
   if (cg::this_cluster().num_blocks() > 1) cg::this_cluster().sync();
@@ -498,76 +375,6 @@ struct Plan {
   size_t dyn;  // dynamic shared memory of a block
 };
 
-cudaLaunchConfig_t launch_config(int cluster, int images, size_t dyn, cudaStream_t stream,
-                                 cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, images, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = dyn;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// Whether `cluster` blocks of `fn` with `dyn` bytes can be resident at once.
-cudaError_t cluster_fits(const void* fn, int cluster, size_t dyn, bool* fits) {
-  if (cluster == 1) {
-    *fits = true;
-    return cudaSuccess;
-  }
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = launch_config(cluster, 1, dyn, nullptr, &attr);
-  int n = 0;
-  cudaError_t err = cudaOccupancyMaxActiveClusters(&n, fn, &cfg);
-  if (err == cudaErrorInvalidClusterSize || err == cudaErrorInvalidConfiguration) {
-    cudaGetLastError();  // a refused size is an answer, not a fault
-    *fits = false;
-    return cudaSuccess;
-  }
-  *fits = n > 0;
-  return err;
-}
-
-// The device's shared-memory room for the dynamic part, after setting it
-// (and the non-portable cluster sizes) on every variant; once a device.
-cudaError_t device_room(size_t* room) {
-  static std::mutex mu;
-  static size_t rooms[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  std::lock_guard<std::mutex> lock(mu);
-  if (rooms[dev] == 0) {
-    int optin = 0;
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    size_t stat = 0;
-    for (int k = 0; err == cudaSuccess && k < kNumVariants; ++k) {
-      cudaFuncAttributes fa;
-      err = cudaFuncGetAttributes(&fa, kernel_of(kVariants[k]));
-      if (err == cudaSuccess && fa.sharedSizeBytes > stat) stat = fa.sharedSizeBytes;
-    }
-    if (err != cudaSuccess) return err;
-    const size_t r = static_cast<size_t>(optin) - stat;
-    for (int k = 0; err == cudaSuccess && k < kNumVariants; ++k) {
-      const void* fn = kernel_of(kVariants[k]);
-      err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(r));
-      if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    }
-    if (err != cudaSuccess) return err;
-    rooms[dev] = r;
-  }
-  *room = rooms[dev];
-  return cudaSuccess;
-}
-
 // The launch plan of a wave: the cluster size (`want`, or the rule's at
 // 0), the lanes of a block and of a thread. With check_fit, the size is
 // lowered (rule) or refused (`want`) while cudaOccupancyMaxActiveClusters
@@ -579,8 +386,10 @@ cudaError_t make_plan(int channels, int lanes, int contexts, int want, bool chec
   const int64_t cnl = static_cast<int64_t>(channels) * lanes;
   if (cnl >= (int64_t{1} << 24)) return cudaErrorInvalidValue;  // ranks fit 24 bits
   if (want < 0 || want > kMaxCluster || (want & (want - 1)) != 0) return cudaErrorInvalidValue;
+  const void* fns[kNumVariants];
+  for (int k = 0; k < kNumVariants; ++k) fns[k] = kernel_of(kVariants[k]);
   size_t room = 0;
-  cudaError_t err = device_room(&room);
+  cudaError_t err = device_room(fns, kNumVariants, &room);
   if (err != cudaSuccess) return err;
   const size_t tab = table_bytes(channels * contexts);
   int s = want;

@@ -1,12 +1,13 @@
 """Fractal tiling geometry as dense index tensors.
 
-The port's copy of frave_tpu/fractal/geometry.py, with the fields the grid
-mode reads: one host computation per (height, width, depth) gives the tile
-centers, the tree offsets, the pixel gather, the coefficient masks and the
-parent-resolution neighbour slots (nbr_par) as numpy arrays. The builder is
-the vectorized one (fractal/geometry_fast.py), with no native library;
-the JAX package's loop-based reference builder and the parity-mode fields
-(nbr_idx, level_slots, tile_nbr, level_of_haar) are left out.
+The port's copy of frave_tpu/fractal/geometry.py: one host computation per
+(height, width, depth) gives the tile centers, the tree offsets, the pixel
+gather, the coefficient masks, the neighbour slots of every mode (nbr_idx,
+the parity mode's same-level taps; nbr_par, the parent-resolution taps of
+the parallel and grid modes), the per-level canonical slot lists and the
+tile-lattice neighbours as numpy arrays. The builder is the vectorized one
+(fractal/geometry_fast.py), with no native library; the JAX package's
+loop-based reference builder is left out.
 
 Coordinate conventions: a position is a complex integer (re, im) with
 re = x (column) and im = y (row). A "flat coefficient index" is
@@ -118,8 +119,7 @@ def fractal_divide(width: int, height: int, depth: int) -> List[Pos]:
 
 @dataclasses.dataclass
 class FractalGeometry:
-    """All static geometry for one (height, width, depth) that grid mode
-    reads."""
+    """All static geometry for one (height, width, depth)."""
 
     height: int
     width: int
@@ -129,9 +129,18 @@ class FractalGeometry:
     offsets: np.ndarray  # [2**(depth+1), 2] int32 tree offsets
     pixel_gather: np.ndarray  # [T, 2**depth] int32 flat pixel index or -1 (leaf j)
     coef_mask: np.ndarray  # [T, 2**depth] bool: coefficient present
+    # parity mode's taps: same-level {left, up_left, up_right} in columns
+    # 0:3, parent-resolution {right, down_left, down_right} in 3:6
+    nbr_idx: np.ndarray  # [T * 2**depth, 6] int32, -1 absent
     # all six directional neighbours read at the PARENT haar slot (fully
     # decoded when a level starts), so a whole level is one decode wave
     nbr_par: np.ndarray  # [T * 2**depth, 6] int32, -1 absent
+    level_of_haar: np.ndarray  # [2**depth] int32: 0 for haar 0/1, else floor(log2(haar))
+    # per-level canonical position lists as flat coefficient slots
+    level_slots: List[np.ndarray]  # level L in [0, depth): [n_L] int32
+    # tile-lattice neighbours of the two level-0 phases in getter order
+    # (left, up_left, up_right, right, down_left, down_right)
+    tile_nbr: np.ndarray  # [T, 6] int32 tile index or -1
 
     @property
     def nodes_per_tile(self) -> int:

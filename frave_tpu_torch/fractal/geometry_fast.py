@@ -1,7 +1,7 @@
 """Vectorized geometry construction (numpy, no per-position Python loops).
 
-The port's copy of frave_tpu/fractal/geometry_fast.py, less the fields
-grid mode does not read. Position "maps" are sorted int64 key arrays with
+The port's copy of frave_tpu/fractal/geometry_fast.py. Position "maps"
+are sorted int64 key arrays with
 searchsorted lookups, and the six directional neighbour getters —
 including the scale-2 membership fixups and the reference codec's quirk of
 testing membership against the map indexed by *scale* — are evaluated for
@@ -58,6 +58,19 @@ class _LevelMap:
         idx = np.searchsorted(self.keys, k)
         idx_c = np.minimum(idx, max(self.keys.size - 1, 0))
         return (self.keys.size > 0) & (idx < self.keys.size) & (self.keys[idx_c] == k)
+
+
+def _neighbour_positions(
+    pos: np.ndarray, scale: int, fixup_map: "_LevelMap"
+) -> np.ndarray:
+    """All six directional neighbour positions for every input position:
+    pos [P, 2] -> [P, 6, 2] in getter order (left, up_left, up_right,
+    right, down_left, down_right), with the scale-2 fixups of
+    _neighbour_positions_dir."""
+    out = np.empty((pos.shape[0], 6, 2), dtype=np.int64)
+    for k in range(6):
+        out[:, k] = _neighbour_positions_dir(pos, scale, fixup_map, k)
+    return out
 
 
 def _neighbour_positions_dir(
@@ -143,10 +156,22 @@ def build_geometry_fast(height: int, width: int, depth: int) -> G.FractalGeometr
         q_arr = np.tile(np.arange(lo, hi, dtype=np.int64), T)
         maps.append(_LevelMap(pos, t_arr, q_arr))
 
-    # nbr_par: the neighbour's parent slot in every direction (getter k
-    # -> column k). Directions are processed one at a time to keep peak
-    # memory low.
+    # tile map (centers -> tile index; haar unused)
+    tile_map = _LevelMap(centers, tids, np.zeros(T, dtype=np.int64))
+
+    # tile_nbr: 6 directions at scale = depth (the fixup map is unused
+    # unless depth == 2)
+    tn_pos = _neighbour_positions(centers, depth, maps[2] if len(maps) > 2 else maps[-1])
+    tile_nbr, _ = tile_map.lookup(tn_pos)  # [T, 6]
+
+    # getter k -> column k of both tables: nbr_idx[:, 0:3] are the
+    # same-level {left, up_left, up_right} slots, nbr_idx[:, 3:6] the
+    # parent-resolution {right, down_left, down_right}; nbr_par is the
+    # parent slot in every direction. Directions are processed one at a
+    # time to keep peak memory low.
+    nbr_idx = np.full((T * n, 6), -1, dtype=np.int64)
     nbr_par = np.full((T * n, 6), -1, dtype=np.int64)
+    level_slots: List[np.ndarray] = [(np.arange(T, dtype=np.int64) * n).astype(np.int64)]
     for L in range(1, depth):
         lo, hi = 1 << L, 1 << (L + 1)
         nL = hi - lo
@@ -159,6 +184,7 @@ def build_geometry_fast(height: int, width: int, depth: int) -> G.FractalGeometr
         o = np.lexsort((pos_all[:, 0], pos_all[:, 1]))
         pos_o = pos_all[o]
         slots_o = (t_all[o] * n + q_all[o]).astype(np.int64)
+        level_slots.append(slots_o)
 
         # the scale-2 fixup tests membership in maps[2] (the reference
         # quirk); for any other scale the fixup map is unused
@@ -167,7 +193,16 @@ def build_geometry_fast(height: int, width: int, depth: int) -> G.FractalGeometr
             npos_k = _neighbour_positions_dir(pos_o, scale, fix, k)  # [P, 2]
             t_n, q_n = m.lookup(npos_k)  # [P]
             found = t_n >= 0
-            nbr_par[slots_o, k] = np.where(found, t_n * n + q_n // 2, -1)
+            par_slot = np.where(found, t_n * n + q_n // 2, -1)
+            if k < 3:
+                nbr_idx[slots_o, k] = np.where(found, t_n * n + q_n, -1)
+            else:
+                nbr_idx[slots_o, k] = par_slot
+            nbr_par[slots_o, k] = par_slot
+
+    level_of_haar = np.zeros(n, dtype=np.int64)
+    if n > 1:
+        level_of_haar[1:] = np.floor(np.log2(np.arange(1, n))).astype(np.int64)
 
     return G.FractalGeometry(
         height=height,
@@ -178,5 +213,9 @@ def build_geometry_fast(height: int, width: int, depth: int) -> G.FractalGeometr
         offsets=off.astype(np.int32),
         pixel_gather=pixel_gather.astype(np.int32),
         coef_mask=mask,
+        nbr_idx=nbr_idx.astype(np.int32),
         nbr_par=nbr_par.astype(np.int32),
+        level_of_haar=level_of_haar.astype(np.int32),
+        level_slots=[s.astype(np.int32) for s in level_slots],
+        tile_nbr=tile_nbr.astype(np.int32),
     )

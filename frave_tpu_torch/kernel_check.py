@@ -13,6 +13,9 @@ Every problem comes for one image without a batch axis (images=0) or for
 a same-shape batch of `images` images: seeded per image, with the
 transform ids, qdivs and decode problems mixed across the batch, and the
 row map and row activity shared, as the pipeline's batches have them.
+decode_steps' problems are real: the step tensors of an image's program
+and the wire of the port's own containers of seeded images (or garbage
+states and streams on that program).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from .entropy.tables import ALPHABET_SIZE, CONTEXT_AMOUNT, _LAPLACE_GRID_ROWS
 from .entropy.tables_torch import finalize_contexts_device
 from .ops import lifting as L
 from .ops import rans_torch as RT
+from .ops import step_decode as SD
 
 # name -> (wrapper, plain version, CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -51,7 +55,15 @@ KERNELS = {
         "frave_tpu_torch/csrc/rans_decode.cu",
         "frave_tpu/ops/pallas_rans.py:328",
     ),
+    "decode_steps": (
+        SD.decode_steps,
+        SD.decode_steps_plain,
+        "frave_tpu_torch/csrc/rans_step_decode.cu",
+        "frave_tpu/codec/pipeline_jax.py:820-868 + frave_tpu/ops/rans_jax.py:555",
+    ),
 }
+# the kernels with a forced cluster size (the others run their launch rule)
+CLUSTERED = ("decode_scan_wave", "decode_steps")
 # the card's memory rate the byte bound is taken at (H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 # cluster sizes kernel 3 can be forced to
@@ -148,6 +160,55 @@ def garbage_wave(rng, R: int, C: int, NL: int):
     words = rng.integers(0, 1 << 16, size=R * C * NL)
     stream = np.concatenate([words, np.zeros(C * NL, np.int64)]).astype(np.int32)
     return x0, buckets, active, stream, cdfs, bits
+
+
+def step_operands(cis, device, kind: str = "valid", rng=None, images: int = 0):
+    """decode_steps' operands (x, gptr, steps, vparams, wparams, stream,
+    tabs, n_slots) for the port's containers `cis` (one shape, mode and
+    lane count) on their program on `device`: "valid" their own wire;
+    "garbage" the same tables and parameters with states drawn from
+    [2^16, 2^32) and random stream words (the zero padding kept). images
+    0: one image without the batch axis (cis holds one container)."""
+    from .codec import pipeline_torch as PT
+
+    meta, nl = cis[0].metadata, cis[0].num_lanes
+    prog = PT.get_program(meta.height, meta.width, nl, meta.num_channels, device, cis[0].mode)
+    states, streams, bits, offpk, scales, vp, wp, _, _ = PT.assemble_wire_batch(cis, nl)
+    if kind == "garbage":
+        states = rng.integers(1 << 16, 1 << 32, size=states.shape, dtype=np.int64)
+        pad = meta.num_channels * nl
+        streams = streams.astype(np.int64)
+        streams[:, :-pad] = rng.integers(0, 1 << 16, size=(streams.shape[0], streams.shape[1] - pad))
+    elif kind != "valid":
+        raise ValueError(f"unknown decode problem kind {kind!r}")
+    dev = prog.device
+    wire = [torch.as_tensor(np.ascontiguousarray(a), device=dev) for a in (
+        states.astype(np.int64), streams.astype(np.int32), bits.astype(np.int64),
+        offpk.astype(np.int64), scales.astype(np.int64), vp, wp)]
+    ops = prog.step_operands(*wire)
+    if images:
+        return ops
+    x, gptr, steps, vparams, wparams, stream, tabs, n_slots = ops
+    return (x[0], gptr[0], steps, vparams[0], wparams[0], stream[0],
+            {k: v[0] for k, v in tabs.items()}, n_slots)
+
+
+def step_problem(rng, h: int, w: int, c: int, mode: str, kind: str, device, images: int = 0):
+    """decode_steps' operands on the program of an h x w x c image in
+    `mode` at its default lane count: step_operands of the port's
+    containers of seeded natural images (one, or `images` in one encode
+    batch), "valid" or "garbage"."""
+    from .codec import pipeline_torch as PT
+    from .codec.options import EncoderOptions
+    from .fractal.schedule import default_num_lanes, get_schedule
+    from .images import RasterImage
+    from .testing import natural_image
+
+    seeds = rng.integers(0, 1 << 30, size=max(images, 1))
+    imgs = [RasterImage.from_array(natural_image(h, w, c, int(sd))) for sd in seeds]
+    nl = default_num_lanes(get_schedule(h, w, mode=mode).num_symbols)
+    cis = PT.encode_pipeline_torch_batch(imgs, EncoderOptions(mode=mode, num_lanes=nl), device)
+    return step_operands(cis, device, kind, rng, images)
 
 
 def _one_decode_problem(rng, wave_sizes, R: int, C: int, NL: int, kind: str):
@@ -290,7 +351,8 @@ def encode_problem(rng, R: int, C: int, NL: int, images: int = 0):
 
 def problem(name: str, rng, shape, kind=None, device="cpu", images: int = 0):
     """(positional args, extra args) for kernel `name` at `shape`:
-    encode_scan and decode_scan_wave (R, C, NL), on the CPU;
+    encode_scan and decode_scan_wave (R, C, NL), on the CPU; decode_steps
+    (h, w, c, mode) on `device` (step_problem);
     forward_lift_quantize_pixels and dequantize_inverse_lift_pixels
     (h, w, c) on `device`, the program of that image. `kind` picks
     decode_scan_wave's problem (DECODE_KINDS), kernel B's transform id
@@ -298,6 +360,9 @@ def problem(name: str, rng, shape, kind=None, device="cpu", images: int = 0):
     images: 0 for one image without a batch axis, else the batch size."""
     if name == "decode_scan_wave":
         return decode_problem(rng, *shape, kind, images), ()
+    if name == "decode_steps":
+        ops = step_problem(rng, *shape, kind or "valid", device, images)
+        return ops[:-1], ops[-1:]
     if name == "dequantize_inverse_lift_pixels":
         return lift_pixels_problem(rng, program(*shape, device), kind or 0, images)
     if name == "forward_lift_quantize_pixels":
@@ -391,6 +456,17 @@ def bytes_moved(name: str, args, out) -> int:
         qplane, nm, lm, qdiv, leaf_pix, _ = args
         used = qplane.shape[0] * nm.numel() * qplane.element_size()
         return used + _nbytes((nm, lm, qdiv, leaf_pix)) + _nbytes(out)
+    if name == "decode_steps":
+        # the step tensors once, and per image and channel the taps of the
+        # active lanes (4 bytes each) and the words consumed; the plane is
+        # the output, written once
+        x, gptr, steps, vparams, wparams, stream, tabs = args[:7]
+        rows = x.numel() // x.shape[-1]  # images x channels
+        act = steps["coef"] >= 0
+        taps = int(((steps["nbr"] >= 0) & act[..., None]).sum()) * rows * 4
+        used = int((out[2] - gptr).sum())
+        return (_nbytes((x, gptr, steps, vparams, wparams, tabs)) + taps
+                + used * stream.element_size() + _nbytes(out))
     if name != "decode_scan_wave":
         return _nbytes(args) + _nbytes(out)
     x, gptr, buckets, active, stream, tabs = args
@@ -403,44 +479,60 @@ def check(name: str, shape, device, seed: int = 0, timed: bool = False,
           kind=None, clusters=(0,), images: int = 0) -> dict:
     """Kernel `name` vs its plain version on the same `device` tensors at
     `shape` (problem `kind`, see problem(); a batch of `images` images, 0:
-    one without a batch axis). decode_scan_wave runs at each
-    cluster size of `clusters` (0: its launch rule) against one plain
-    result. Returns {"name", "shape", "images", "kind", "cluster" (the size the first
-    of `clusters` ran at; None for the other kernels), "max_abs_err" (the
-    largest over `clusters`), "errs" ({cluster: err}), "bytes", "bound_ms",
-    "ms" (device_ms of the wrapper), "wrapper_ms" (median_ms of the
-    wrapper, the host's share included), "plain_ms"} (times None unless
-    timed; a timed decode_scan_wave also gives "cluster_ms" {cluster:
+    one without a batch axis): check_args on problem()'s operands."""
+    args, extra = problem(name, np.random.default_rng(seed), shape, kind, device, images)
+    return check_args(name, args, extra, device, timed, clusters,
+                      {"shape": list(shape), "images": images, "kind": kind})
+
+
+def check_args(name: str, args, extra, device, timed: bool = False, clusters=(0,),
+               info=None) -> dict:
+    """Kernel `name` vs its plain version on operands (args, extra), moved
+    to `device`. decode_scan_wave and decode_steps run at each cluster size
+    of `clusters` (0: the launch rule) against one plain result. Returns
+    {**info ("shape", "images", "kind"), "cluster" (the size the first of
+    `clusters` ran at; None for the other kernels), "max_abs_err" (the
+    largest over `clusters`), "errs" ({cluster: err}), "bytes",
+    "bound_ms", "ms" (device_ms of the wrapper), "wrapper_ms" (median_ms of
+    the wrapper, the host's share included), "plain_ms"} (times None unless
+    timed; a timed clustered kernel also gives "cluster_ms" {cluster:
     device ms})."""
     wrapper, plain, _, _ = KERNELS[name]
-    args, extra = problem(name, np.random.default_rng(seed), shape, kind, device, images)
     args = tuple(_to(a, device) for a in args)
     extra = tuple(_to(a, device) for a in extra)
-    decode = name == "decode_scan_wave"
-    if not decode and tuple(clusters) != (0,):
+    clustered = name in CLUSTERED
+    if not clustered and tuple(clusters) != (0,):
         raise ValueError(f"{name} has no cluster size")
     ref = plain(*args, *extra)
     errs = {}
     for size in clusters:
-        kw = {"cluster": size} if decode else {}
+        kw = {"cluster": size} if clustered else {}
         errs[size] = _max_abs_err(wrapper(*args, *extra, **kw), ref)
     ran = None
-    if decode and device.type == "cuda":
-        ran = RT.decode_plan(shape[1], shape[2], args[5]["bits"].shape[-1], clusters[0])[0]
+    if clustered and device.type == "cuda":
+        ca = args[-1]["bits"].shape[-1]
+        x = args[0]
+        if name == "decode_scan_wave":
+            ran = RT.decode_plan(x.shape[-2], x.shape[-1], ca, clusters[0])[0]
+        else:
+            ran = SD.decode_steps_plan(x.shape[-2], x.shape[-1], ca, args[3].shape[-2],
+                                       clusters[0])[0]
     nbytes = bytes_moved(name, args, ref)
-    out = {"name": name, "shape": list(shape), "images": images, "kind": kind, "cluster": ran,
+    out = {**(info or {}), "name": name, "cluster": ran,
            "max_abs_err": max(errs.values()), "errs": errs, "bytes": nbytes,
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
            "ms": None, "wrapper_ms": None, "plain_ms": None}
     if timed:
-        kw = {"cluster": clusters[0]} if decode else {}
+        kw = {"cluster": clusters[0]} if clustered else {}
         call = lambda: wrapper(*args, *extra, **kw)  # noqa: E731
         out["ms"] = device_ms(call)
         out["wrapper_ms"] = median_ms(call)
-        out["plain_ms"] = median_ms(lambda: plain(*args, *extra))
-        if decode:
+        slow = name == "decode_steps"  # a torch loop over thousands of steps
+        out["plain_ms"] = median_ms(lambda: plain(*args, *extra), reps=3 if slow else 20,
+                                    warmup=1 if slow else 3)
+        if clustered:
             out["cluster_ms"] = {
-                size: device_ms(lambda: wrapper(*args, cluster=size))
+                size: device_ms(lambda: wrapper(*args, *extra, cluster=size))
                 for size in clusters
             }
     return out

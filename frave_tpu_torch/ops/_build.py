@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (frave_tpu_torch/csrc/*.cu).
+"""Build and load the port's CUDA kernels (frave_tpu_torch/csrc/*.cu, with
+the headers they share, csrc/*.cuh).
 
 The sources have a plain C interface, so they compile with nvcc alone —
 no PyTorch headers — into one shared library that ctypes loads: one nvcc
@@ -12,9 +13,9 @@ then one link, ``nvcc -shared -o frave_tpu_torch/_build/libfrave_kernels_<key>.s
 shared memory and spills of every kernel).
 
 The build runs on first use (a few seconds), never at import. Its output
-goes to ``frave_tpu_torch/_build/``, named by a hash of the sources and
-flags, so an edited source rebuilds and an unchanged one loads the cached
-library. Every pointer and the stream cross as ``c_void_p``; each C entry
+goes to ``frave_tpu_torch/_build/``, named by a hash of the sources, the
+headers and the flags, so an edited source or header rebuilds and an
+unchanged tree loads the cached library. Every pointer and the stream cross as ``c_void_p``; each C entry
 point returns ``cudaGetLastError()`` after its launch, and the wrappers
 raise on a nonzero code.
 """
@@ -52,6 +53,8 @@ _SIGNATURES = {
     "frave_rans_decode_wave": [_P] * 11 + [_I] * 7 + [_P],
     "frave_rans_decode_plan": [_I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "frave_exchange_loop": [_I, _I, _P, _P],
+    "frave_rans_decode_steps": [_P] * 16 + [_I] * 5 + [_L] + [_I] * 3 + [_P],
+    "frave_rans_decode_steps_plan": [_I] * 5 + [ctypes.POINTER(_I)] * 2,
 }
 
 _lock = threading.Lock()
@@ -64,9 +67,15 @@ def _sources():
     return sorted(SRC_DIR.glob("*.cu"))
 
 
+def _headers():
+    return sorted(list(SRC_DIR.glob("*.cuh")) + list(SRC_DIR.glob("*.h")))
+
+
 def _cache_key(sources) -> str:
+    """A hash of the flags, the sources and every header beside them (an
+    edited header must not load a library built from the old one)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources:
+    for p in list(sources) + _headers():
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]

@@ -13,7 +13,9 @@ and masked back to 32 bits where a wrap could occur.
     CPU.
   * stream_compact_grid — grid mode's decode order IS the flat
     [R, C, NL] order, so compaction is an exclusive prefix sum over the
-    emit flags plus one scatter, per image.
+    emit flags plus one scatter, per image; stream_compact — the parallel
+    and parity modes' decode order is schedule.get_stream_perm's, so the
+    grid is first gathered into that order, then compacted the same way.
   * pack_u16_pairs — the u16 stream as u32 words (bitcast of pairs).
   * decode_scan_wave — every decode row of one grid wave: kernel 3
     (csrc/rans_decode.cu frave_rans_decode_wave) on the card, the plain
@@ -57,12 +59,14 @@ def _check_grid(name, t, shape, dtypes):
 
 
 def row_map(wave_sizes, nl: int):
-    """Grid mode's row map for lane count nl: each wave's symbols fill
-    rows of nl lanes back to back in schedule order, so row r holds
-    schedule positions row_k0[r] .. row_k0[r] + row_len[r] - 1 in lanes
-    0 .. row_len[r] - 1 (schedule.grid_row_lane; empty waves take no
-    row). wave_sizes: symbols per wave. Returns (row_k0, row_len) [R]
-    int32 numpy arrays."""
+    """The row map for lane count nl: each wave's symbols fill rows of nl
+    lanes back to back in schedule order, so row r holds schedule
+    positions row_k0[r] .. row_k0[r] + row_len[r] - 1 in lanes
+    0 .. row_len[r] - 1 (empty waves take no row). Grid mode passes its
+    wave sizes (schedule.grid_row_lane); the parallel and parity modes
+    pack all K symbols tightly, row r holding [r*nl, (r+1)*nl), which is
+    the map of the one "wave" [K]. Returns (row_k0, row_len) [R] int32
+    numpy arrays."""
     k0s, lens = [], []
     k0 = 0
     for ws in (int(w) for w in wave_sizes):
@@ -243,7 +247,7 @@ def stream_compact_grid(words: torch.Tensor, flags: torch.Tensor, kc: int):
     if words.dim() == 3:
         stream, total = stream_compact_grid(words[None], flags[None], kc)
         return stream[0], total[0]
-    B = words.shape[0]
+    B = words.shape[0]  # [B, R, C, NL], or [B, N] already flat
     f = flags.reshape(B, -1)
     w = words.reshape(B, -1)
     csum = torch.cumsum(f.to(torch.int64), dim=1)
@@ -252,6 +256,22 @@ def stream_compact_grid(words: torch.Tensor, flags: torch.Tensor, kc: int):
     buf.scatter_(1, dst, w)
     total = csum[:, -1] if csum.shape[1] else csum.new_zeros((B,))
     return buf[:, :kc], total
+
+
+def stream_compact(words: torch.Tensor, flags: torch.Tensor, perm: torch.Tensor, kc: int):
+    """stream_compact_grid for the parallel and parity modes, whose decode
+    order is not the flat grid order: the [B, R, C, NL] words and flags
+    are gathered into decode-rank order through perm [kc] int64
+    (schedule.get_stream_perm: rank j -> flat grid slot), then packed by a
+    prefix sum and one scatter. Returns (streams [B, kc], totals [B]); one
+    image's grid [R, C, NL] gives ([kc], a 0-d total)."""
+    if words.dim() == 3:
+        stream, total = stream_compact(words[None], flags[None], perm, kc)
+        return stream[0], total[0]
+    B = words.shape[0]
+    w = words.reshape(B, -1)[:, perm]
+    f = flags.reshape(B, -1)[:, perm]
+    return stream_compact_grid(w, f, kc)
 
 
 def pack_u16_pairs(stream: torch.Tensor) -> torch.Tensor:

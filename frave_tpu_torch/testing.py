@@ -9,13 +9,18 @@ from __future__ import annotations
 
 import numpy as np
 
-# label -> (height, width, channels, seed, presets) of every image whose
-# pinned-parameter container hash tests/data/torch_port_refs.json keeps
+# label -> (height, width, channels, seed, presets, mode) of every image
+# whose pinned-parameter container hash tests/data/torch_port_refs.json
+# keeps (the step-tensor modes' labels name their mode)
 REF_IMAGES = {
-    "256x256 gray": (256, 256, 1, 1, ("LOSSLESS",)),
-    "768x512 RGB": (512, 768, 3, 2, ("LOSSLESS", "HIGH")),
-    "512x512 gray": (512, 512, 1, 3, ("HIGH", "MEDIUM", "LOW")),
-    "2048x2048 RGB": (2048, 2048, 3, 4, ("LOSSLESS",)),
+    "256x256 gray": (256, 256, 1, 1, ("LOSSLESS",), "grid"),
+    "768x512 RGB": (512, 768, 3, 2, ("LOSSLESS", "HIGH"), "grid"),
+    "512x512 gray": (512, 512, 1, 3, ("HIGH", "MEDIUM", "LOW"), "grid"),
+    "2048x2048 RGB": (2048, 2048, 3, 4, ("LOSSLESS",), "grid"),
+    "2048x2048 RGB parallel": (2048, 2048, 3, 4, ("LOSSLESS",), "parallel"),
+    "768x512 RGB parity": (512, 768, 3, 2, ("LOSSLESS",), "parity"),
+    "256x256 gray parity": (256, 256, 1, 1, ("LOSSLESS",), "parity"),
+    "64x64 gray parallel": (64, 64, 1, 5, ("LOSSLESS",), "parallel"),
 }
 
 

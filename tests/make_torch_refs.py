@@ -2,15 +2,17 @@
 """Write tests/data/torch_port_refs.json: the reference containers that
 chip_smoke.py holds the port's card encodes against, byte for byte.
 
-    JAX_PLATFORMS=cpu python3 tests/make_torch_refs.py
+    JAX_PLATFORMS=cpu python3 tests/make_torch_refs.py [LABEL ...]
 
-For every image and preset of frave_tpu_torch.testing.REF_IMAGES,
+For every image and preset of frave_tpu_torch.testing.REF_IMAGES (or
+only those of the labels given, the file's other entries kept as they
+are), in the image's mode,
 frave_tpu's jax backend (the one the port matches byte for byte,
 including the empty contexts' scale rows) encodes the seeded image, then
 encodes it again with that fit and lane count pinned. The JSON keeps the
 pinned parameters, the pinned container's length and SHA-256, and each
 context's (max_freq_bits, scale index), so that a mismatch on the card
-can be read context by context. The 2048x2048 RGB entry takes a few
+can be read context by context. Each 2048x2048 RGB entry takes a few
 minutes on a CPU (two full-size jax encodes); the rest well under one.
 
 tests/test_torch_hostmods.py re-encodes the 256x256 gray entry with
@@ -41,14 +43,15 @@ def reference_entry(label: str, quality: str) -> dict:
 
     from frave_tpu_torch.testing import REF_IMAGES, natural_image
 
-    h, w, c, seed, _ = REF_IMAGES[label]
+    h, w, c, seed, _, mode = REF_IMAGES[label]
     px = natural_image(h, w, c, seed)
     q = frave_tpu.EncoderQuality[quality]
-    ci = deserialize(frave_tpu.encode(px, frave_tpu.EncoderOptions(backend="jax", quality=q)))
+    ci = deserialize(frave_tpu.encode(
+        px, frave_tpu.EncoderOptions(backend="jax", quality=q, mode=mode)))
     vp = np.stack([ci.channel_data[k].value_prediction_parameters for k in range(c)])
     wp = np.stack([ci.channel_data[k].width_prediction_parameters for k in range(c)])
     pinned = frave_tpu.EncoderOptions(
-        backend="jax", quality=q, num_lanes=ci.num_lanes,
+        backend="jax", quality=q, mode=mode, num_lanes=ci.num_lanes,
         value_prediction_params=vp, width_prediction_params=wp,
     )
     blob = frave_tpu.encode(px, pinned)
@@ -56,6 +59,7 @@ def reference_entry(label: str, quality: str) -> dict:
     return {
         "label": label,
         "quality": quality,
+        "mode": mode,
         "shape": [h, w, c],
         "seed": seed,
         "num_lanes": int(ci.num_lanes),
@@ -71,12 +75,21 @@ def reference_entry(label: str, quality: str) -> dict:
     }
 
 
-def main() -> int:
+def main(labels) -> int:
     from frave_tpu_torch.testing import REF_IMAGES
 
+    unknown = sorted(set(labels) - set(REF_IMAGES))
+    if unknown:
+        raise SystemExit(f"unknown labels {unknown}; REF_IMAGES has {sorted(REF_IMAGES)}")
+    old = {}
+    if labels:
+        old = {(e["label"], e["quality"]): e for e in json.load(open(OUT))["entries"]}
     entries = []
-    for label, (*_, presets) in REF_IMAGES.items():
+    for label, (_, _, _, _, presets, _) in REF_IMAGES.items():
         for quality in presets:
+            if labels and label not in labels:
+                entries.append(old[(label, quality)])
+                continue
             entries.append(reference_entry(label, quality))
             print(f"{label} {quality}: {entries[-1]['length']} B {entries[-1]['sha256']}")
     with open(OUT, "w") as f:
@@ -87,4 +100,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card. Imports no JAX (the machine with the card has none); skips where
+card (kernel D, decode_steps, on real programs and containers). Imports no JAX (the machine with the card has none); skips where
 torch.cuda.is_available() is false. Run it there with
 `python -m pytest tests/test_torch_cuda.py -q`."""
 
@@ -177,3 +177,51 @@ def test_cuda_lift_head_batch_zero_slots():
     assert (out[..., -1] == 0).all()
     assert torch.equal(out, L.forward_lift_quantize_pixels_plain(*args, *extra))
 
+
+
+# kernel D's programs (h, w, c, mode): parity and parallel, and the grid
+# shapes with no dense lattice, up to 768x512 RGB
+STEP_SHAPES = [(64, 64, 1, "parity"), (96, 80, 3, "parallel"), (16, 16, 3, "grid"),
+               (1, 1, 1, "grid"), (256, 256, 1, "parity"), (512, 768, 3, "parallel")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", STEP_SHAPES)
+def test_cuda_decode_steps_matches_plain(shape):
+    """Kernel D against decode_steps_plain on a real program's step tensors
+    and the wire of the port's own container (and garbage states and
+    streams on it), one image and a batch of 2, at its launch rule's
+    cluster size and forced to every size up to 16 blocks (several blocks
+    exchange plane values across the cluster every step); one launch a
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    from frave_tpu_torch.ops import step_decode as SD
+
+    clusters = (0,) + kernel_check.CLUSTERS
+    for kind in kernel_check.DECODE_KINDS:
+        for images in (0, 2):
+            before = SD.decode_steps.launches
+            res = kernel_check.check("decode_steps", shape, torch.device("cuda"), kind=kind,
+                                     clusters=clusters, images=images)
+            assert res["max_abs_err"] == 0, res
+            assert SD.decode_steps.launches == before + len(clusters)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_steps_refuses_what_it_cannot_run():
+    """More than 16 * 8192 lanes, or a cluster size that is not a power of
+    two up to 16, raises without launching."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    from frave_tpu_torch.ops import step_decode as SD
+
+    with pytest.raises(RuntimeError):
+        SD.decode_steps_plan(3, 65536, 15, 11)
+    args, extra = kernel_check.problem("decode_steps", np.random.default_rng(4),
+                                       (64, 64, 1, "parity"), "valid", torch.device("cuda"))
+    args = tuple(kernel_check._to(a, torch.device("cuda")) for a in args)
+    before = SD.decode_steps.launches
+    with pytest.raises(RuntimeError):
+        SD.decode_steps(*args, *extra, cluster=3)
+    assert SD.decode_steps.launches == before

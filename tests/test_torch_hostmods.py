@@ -5,9 +5,9 @@ frave_tpu_torch keeps its own copies of the numpy host modules it needs
 tables, the channel-transform choice, the container and the options), so
 that it imports nothing of frave_tpu. Here the same inputs go through both
 and every array must be equal: at 64x64, 96x80, 256x256 and 512x512, gray
-and RGB where the function sees channels. The port's dataclasses may
-carry fewer fields (it leaves out what grid mode never reads); every field
-it has is compared.
+and RGB where the function sees channels; the schedules of every mode, their
+decode steps and stream permutations also at the tiny shapes 16x16, 1x1,
+2x511 and 511x2. Every field of the port's dataclasses is compared.
 
 Also: the port's container gives back frave_tpu's bytes for the six golden
 fixtures, and tests/data/torch_port_refs.json (the hashes chip_smoke.py
@@ -42,6 +42,9 @@ from frave_tpu_torch.testing import natural_image
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 SHAPES = [(64, 64), (96, 80), (256, 256), (512, 512)]
+# the step-tensor codec's shapes: two with a dense lattice grid, four
+# without one (grid mode decodes them through the step tensors too)
+MODE_SHAPES = [(64, 64), (96, 80), (16, 16), (1, 1), (2, 511), (511, 2)]
 
 
 def assert_same(port, ref, where="."):
@@ -92,8 +95,40 @@ def test_grid_schedule_and_row_lane_match(h, w):
             assert ST.rate_adaptive_lanes(nl, payload, c) == SJ.rate_adaptive_lanes(nl, payload, c)
     v3 = np.arange(18, dtype=np.float32).reshape(3, 6)
     assert_same(sp.expand_params(v3), sj.expand_params(v3))
-    with pytest.raises(NotImplementedError):
-        ST.get_schedule(h, w, mode="parallel")
+    with pytest.raises(ValueError):
+        ST.get_schedule(h, w, mode="diagonal")
+
+
+@pytest.mark.parametrize("mode", ST.MODES)
+@pytest.mark.parametrize("h,w", MODE_SHAPES)
+def test_step_schedules_lane_steps_and_perms_match(h, w, mode):
+    """Every mode's schedule (parity's Kahn layering included), its decode
+    steps at three lane counts and the stream permutation at C = 1 and 3;
+    the geometry they are built from, with the parity-mode fields."""
+    assert_same(GT.get_geometry(h, w), GJ.get_geometry(h, w))
+    sp, sj = ST.get_schedule(h, w, mode=mode), SJ.get_schedule(h, w, mode=mode)
+    assert_same(sp, sj)
+    for nl in sorted({16, 32, ST.default_num_lanes(sp.num_symbols)}):
+        assert_same(ST.get_lane_steps(h, w, nl, mode=mode), SJ.get_lane_steps(h, w, nl, mode=mode),
+                    f"nl={nl}")
+        for c in (1, 3):
+            assert_same(ST.get_stream_perm(h, w, nl, mode=mode, channels=c),
+                        SJ.get_stream_perm(h, w, nl, mode=mode, channels=c), f"nl={nl} C={c}")
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_layer_waves_matches(seed):
+    """The numpy longest-path layering on random DAGs (edges from lower to
+    higher node ids, some repeated, some absent) against the JAX package's."""
+    rng = np.random.default_rng(seed)
+    n = 400
+    deps = np.full((n, 3), -1, dtype=np.int64)
+    for i in range(1, n):
+        k = rng.integers(0, 4)
+        deps[i, :k] = rng.integers(max(0, i - 40), i, size=k)
+    assert_same(ST._layer_waves(n, deps), SJ._layer_waves(n, deps))
+    with pytest.raises(AssertionError):
+        ST._layer_waves(2, np.array([[1, -1, -1], [0, -1, -1]]))
 
 
 @pytest.mark.parametrize("h,w", SHAPES)

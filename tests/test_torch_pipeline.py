@@ -345,11 +345,13 @@ def test_byte_flips_decode_without_crash():
 
 
 def test_unported_shapes_and_devices_raise():
-    with pytest.raises(NotImplementedError):
-        PT.get_program(16, 16, 16, 1, "cpu")  # no dense lattice grid
-    with pytest.raises(NotImplementedError):
+    """Every mode and shape is ported: a grid shape with no dense lattice
+    builds a step-tensor program, and only an unknown mode, a foreign
+    options class or a missing device raises."""
+    assert PT.get_program(16, 16, 16, 1, "cpu").steps is not None  # no dense lattice grid
+    with pytest.raises(ValueError):
         frave_tpu_torch.encode(
-            np.zeros((64, 64), np.uint8), PO.EncoderOptions(mode="parallel"), device="cpu"
+            np.zeros((64, 64), np.uint8), PO.EncoderOptions(mode="diagonal"), device="cpu"
         )
     with pytest.raises(TypeError):  # the port takes only its own options
         frave_tpu_torch.encode(np.zeros((64, 64), np.uint8), EncoderOptions(), device="cpu")
