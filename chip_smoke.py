@@ -75,11 +75,15 @@ script exits nonzero without printing a result:
                   in parity mode, lossless (three timed round trips, the
                   oracle both ways where it has the mode, the pinned
                   encode against the jax hash, kernel D bit-equal to its
-                  plain version on the container's wire and on garbage,
-                  timed beside its byte bound and exchange floor); e3 4
+                  plain version on the container's wire and on garbage
+                  at every design it can run: the launch rule, its
+                  cluster variant at every size it takes, its one-block
+                  variant where that fits; timed beside its byte bound,
+                  the exchange floor and the empty-step floor, and its
+                  design sweep, each feature switched off in turn); e3 4
                   256x256 gray parity images in one encode and one
                   decode batch (one kernel D launch, each container
-                  byte-equal to its own, D at every cluster size); e4
+                  byte-equal to its own, D at every design); e4
                   the v7/v8 fixtures; e5 the grid shapes 1x1, 2x511,
                   511x2 and 16x16, gray and RGB (kernel D where there is
                   no dense lattice), the oracle where it takes the shape;
@@ -128,6 +132,7 @@ from frave_tpu_torch.fractal.schedule import default_num_lanes, get_schedule
 from frave_tpu_torch.ops import _build
 from frave_tpu_torch.ops import lifting as L
 from frave_tpu_torch.ops import rans_torch as RT
+from frave_tpu_torch.ops import step_decode as SD
 from frave_tpu_torch.testing import REF_IMAGES, natural_image
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -678,41 +683,84 @@ def path_d_stream(dev, totals: dict) -> dict:
 
 def d_report(label: str, r: dict, floor: dict, steps: int) -> None:
     """Print kernel D's check `r` of one case: its device time beside the
-    byte bound (and the bound's share of it), the exchange floor of
-    `steps` steps at the cluster size it ran (kernel 3's empty exchange
-    loop a row, measured at that size; one block has no exchange) and the
-    plain version's time; records the floor in r."""
-    size = r["cluster"]
+    byte bound (and the bound's share of it), the plan it ran, its two
+    chain floors and the plain version's time; records the floors in r.
+    The exchange floor is `steps` rows of kernel 3's empty exchange loop at
+    the cluster size the cluster variant runs at this width (the rule's
+    size; one block has none); the empty-step floor `steps` empty steps of
+    the one-block variant (one dependent L2 load, a warp ballot and the
+    block barrier a step, step_decode.step_floor_loop)."""
+    cnl = r["shape"][2] * r["nl"]
+    size = 1
+    while size < 16 and -(-cnl // size) > 2048:
+        size *= 2
     per_step = floor.get(size, 0.0) / EXCHANGE_ROWS
     r["steps"], r["exchange_floor_ms"] = steps, steps * per_step
-    print(f"report {label}: decode_steps ({steps} steps, {r['images']} image(s), cluster "
-          f"{size}) max_abs_err {r['max_abs_err']}, device {r['ms']:.4f} ms (wrapper "
-          f"{r['wrapper_ms']:.4f}), byte bound {r['bound_ms']:.5f} ms ({r['bytes']} B at "
-          f"3.35 TB/s, {100.0 * r['bound_ms'] / r['ms']:.3f}% of the device time), exchange "
-          f"floor {r['exchange_floor_ms']:.4f} ms ({per_step * 1e3:.3f} us a step), plain "
+    r["step_floor_ms"] = kernel_check.step_floor_ms(steps, torch.device("cuda"))
+    print(f"report {label}: decode_steps ({steps} steps, {r['images']} image(s), "
+          f"{r['variant']} variant, cluster {r['cluster']}, {r['per']} a thread, prefetch "
+          f"{r['prefetch']}) max_abs_err {r['max_abs_err']}, device "
+          f"{r['ms']:.4f} ms (wrapper {r['wrapper_ms']:.4f}), byte bound {r['bound_ms']:.5f} ms "
+          f"({r['bytes']} B at 3.35 TB/s, {100.0 * r['bound_ms'] / r['ms']:.3f}% of the device "
+          f"time), exchange floor at {size} blocks {r['exchange_floor_ms']:.4f} ms "
+          f"({per_step * 1e3:.3f} us a step), empty-step floor {r['step_floor_ms']:.4f} ms "
+          f"({r['step_floor_ms'] / max(steps, 1) * 1e3:.3f} us a step), plain "
           f"{r['plain_ms']:.3f} ms")
 
 
-def d_check(label: str, cis, dev, kind: str = "valid", timed: bool = True, clusters=(0,),
+def d_designs(ops) -> list:
+    """Every design kernel D can run on operands `ops`: the launch rule (0),
+    each cluster size its cluster variant takes, and "block" where the rule
+    picks a cluster but the one-block variant fits."""
+    x, steps, vparams, tabs = ops[0], ops[2], ops[3], ops[6]
+    dims = (x.shape[-2], x.shape[-1], tabs["bits"].shape[-1], vparams.shape[-2], steps.max_len)
+    out = [0]
+    for size in kernel_check.CLUSTERS:
+        try:
+            SD.decode_steps_plan(*dims, cluster=size)
+            out.append(size)
+        except RuntimeError:
+            pass
+    if SD.decode_steps_plan(*dims).variant != "block":
+        try:
+            SD.decode_steps_plan(*dims, flags=SD.FORCE_BLOCK)
+            out.append("block")
+        except RuntimeError:
+            pass
+    return out
+
+
+def d_check(label: str, cis, dev, kind: str = "valid", timed: bool = True,
             rng=None) -> dict:
     """Kernel D against decode_steps_plain on the wire of the containers
     `cis` (one decode batch; kind "garbage": random states and words on
-    their tables): plane, final states and stream position bit-equal."""
+    their tables), at every design it can run (d_designs; the rule first,
+    timed): plane, final states and stream position bit-equal."""
     ops = kernel_check.step_operands(cis, dev, kind, rng, images=len(cis))
     meta = cis[0].metadata
+    designs = d_designs(ops)
     r = kernel_check.check_args(
-        "decode_steps", ops[:-1], ops[-1:], dev, timed=timed, clusters=clusters,
+        "decode_steps", ops[:-1], ops[-1:], dev, timed=timed, clusters=designs,
         info={"shape": [meta.height, meta.width, meta.num_channels, cis[0].mode],
-              "images": len(cis), "kind": kind},
+              "images": len(cis), "kind": kind, "nl": cis[0].num_lanes},
     )
     if r["max_abs_err"] != 0:
         raise AssertionError(f"{label}: decode_steps disagrees with its plain version "
                              f"({r['errs']})")
-    if "cluster_ms" in r and len(clusters) > 1:
-        print(f"kernel decode_steps {label} device ms by cluster size (0: the rule): "
+    if "cluster_ms" in r:
+        print(f"kernel decode_steps {label} device ms by design (0: the rule; n: the cluster "
+              f"variant at n blocks; block: the one-block variant): "
               + json.dumps({str(k): round(v, 4) for k, v in r["cluster_ms"].items()}))
-    print(f"main {label}: decode_steps bit-equal to decode_steps_plain ({kind}, clusters "
-          f"{list(clusters)}; plane, final lane states, stream position)")
+    print(f"main {label}: decode_steps bit-equal to decode_steps_plain ({kind}, designs "
+          f"{designs}; plane, final lane states, stream position)")
+    if timed:
+        for name, (plan, ms) in kernel_check.step_design_ms(ops[:-1], ops[-1:], dev).items():
+            if plan is None:
+                print(f"kernel decode_steps design {label} {name}: refused ({ms})")
+                continue
+            print(f"kernel decode_steps design {label} {name}: {ms:.4f} ms ({plan.variant} "
+                  f"variant, cluster {plan.cluster}, {plan.per} a thread, prefetch "
+                  f"{plan.prefetch}; bit-equal)")
     return r
 
 
@@ -755,13 +803,7 @@ def path_e_image(case, label, mode, oracle_mode, oracle, refs, dev, totals, floo
     r = d_check(lab, [ci], dev)
     d_report(lab, r, floor, prog.num_steps)
     checks.setdefault("decode_steps", []).append(r)
-    # garbage at the rule's size, 16 blocks and the fewest blocks D can
-    # run (at most 8192 lanes a block: 8 at 2048x2048 RGB, 1 at 768x512)
-    fewest = 1
-    while c * prog.nl > 8192 * fewest:
-        fewest *= 2
-    d_check(f"{lab} garbage", [ci], dev, "garbage", timed=False,
-            clusters=tuple(dict.fromkeys((0, fewest, 16))), rng=np.random.default_rng(12))
+    d_check(f"{lab} garbage", [ci], dev, "garbage", timed=False, rng=np.random.default_rng(12))
     return blob
 
 
@@ -794,11 +836,10 @@ def path_e_batch(dev, totals, floor, checks) -> None:
     dec = sync_times(lambda: PT.decode_pipeline_torch_batch(cis, dev), dev, runs=3)
     print(f"report {lab}: encode " + rate_line(f"B={E_BATCH}", mp, enc) + "; decode "
           + rate_line(f"B={E_BATCH}", mp, dec))
-    r = d_check(lab, cis, dev, clusters=CLUSTERS)
+    r = d_check(lab, cis, dev)
     d_report(lab, r, floor, PT.get_program(*GRAY, cis[0].num_lanes, 1, dev, "parity").num_steps)
     checks.setdefault("decode_steps", []).append(r)
-    d_check(f"{lab} garbage", cis, dev, "garbage", timed=False, clusters=(0, 16),
-            rng=np.random.default_rng(13))
+    d_check(f"{lab} garbage", cis, dev, "garbage", timed=False, rng=np.random.default_rng(13))
 
 
 def path_e_small(dev, totals, oracle, e2_blob) -> list:
@@ -1175,7 +1216,8 @@ def main() -> int:
         if name in kernel_check.CLUSTERED:
             entry["cluster"] = at["cluster"]
         if name == "decode_steps":
-            entry["steps"], entry["exchange_floor_ms"] = at["steps"], at["exchange_floor_ms"]
+            entry.update({k: at[k] for k in ("variant", "per", "prefetch", "steps",
+                                             "exchange_floor_ms", "step_floor_ms")})
         kernels.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

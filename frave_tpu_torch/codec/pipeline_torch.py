@@ -76,7 +76,8 @@ from ..ops.rans_torch import (
     stream_compact,
     stream_compact_grid,
 )
-from ..ops.step_decode import decode_steps, step_tensors
+from ..ops import step_decode as SD
+from ..ops.step_decode import decode_steps
 from .channel_transform import choose_transform
 from .grid_decode import build_grid_decode, build_grid_encode, get_wave_devs, wire_tables
 from .container import deserialize, serialize
@@ -155,13 +156,16 @@ def pixel_inverse(leaf_pix: np.ndarray, hw: int) -> np.ndarray:
     return inv
 
 
-def check_step_order(steps, n_slots: int) -> None:
+def check_step_order(steps, n_slots: int, step_map=None, rec=None) -> None:
     """Raise unless the step tensors store each plane slot at most once and
     every tap of step s reads a slot that an earlier step stores, or that
-    no step stores (it reads 0). Kernel D needs this: it stores a step's
-    values before the step's exchange barrier and reads the next step's
-    taps after it, and nothing orders a read against a store of the same
-    step."""
+    no step stores (it reads 0); with kernel D's operands (step_map, rec
+    of step_decode.step_operands_host), also unless every tap of step s
+    is a schedule index below the step's own first index k0 (or -1).
+    Kernel D needs this: it stores a step's values before the step's
+    barrier (the block scan's, or the cluster exchange's) and reads the
+    next step's taps after it, and nothing orders a read against a store
+    of the same step."""
     coef = steps.step_coef
     act = coef >= 0
     s_of = np.nonzero(act)[0]
@@ -176,6 +180,11 @@ def check_step_order(steps, n_slots: int) -> None:
     stored = written[np.clip(nb[taps], 0, n_slots - 1)]
     if np.any((stored >= reader) & (stored != np.iinfo(np.int64).max)):
         raise AssertionError("a step reads a slot that the same or a later step stores")
+    if step_map is None:
+        return
+    k0 = np.repeat(step_map[:, 0], step_map[:, 2])
+    if k0.shape[0] != rec.shape[0] or np.any(rec[:, 1:7] >= k0[:, None]):
+        raise AssertionError("a step's tap reads a schedule index at or past the step's first")
 
 
 def _gram_solve(G: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -355,8 +364,10 @@ class CodecProgram:
             mode == "grid" and lane_steps.num_steps != R
         ):
             raise AssertionError("lane steps disagree with the row map")
-        check_step_order(lane_steps, n_slots)
-        self.steps = step_tensors(lane_steps, dev)
+        # kernel D's operands: the step map and the schedule-order records
+        step_map, rec = SD.step_operands_host(sched, lane_steps, n_slots)
+        check_step_order(lane_steps, n_slots, step_map, rec)
+        self.steps = SD.upload(step_map, rec, nl, dev)
         self.num_steps = lane_steps.num_steps
         if mode != "grid":
             # decode rank -> emission-grid slot (grid mode's decode order
@@ -489,7 +500,7 @@ class CodecProgram:
 
     def step_operands(self, states, stream, wire_bits, offpk, scales, vparams, wparams):
         """A batch's wire fields (as decode_exec takes them) -> the operands
-        of ops/step_decode.decode_steps over this program's step tensors:
+        of ops/step_decode.decode_steps over this program's step operands:
         (x, gptr, steps, vparams, wparams, stream, tabs, n_slots)."""
         if self.steps is None:
             raise ValueError("this program decodes with the dense grid waves, not steps")

@@ -378,7 +378,7 @@ def problem(name: str, rng, shape, kind=None, device="cpu", images: int = 0):
 def _to(a, device):
     if isinstance(a, dict):
         return {k: v.to(device) for k, v in a.items()}
-    return a.to(device) if isinstance(a, torch.Tensor) else a
+    return a.to(device) if isinstance(a, (torch.Tensor, SD.StepOperands)) else a
 
 
 def _max_abs_err(a, b) -> int:
@@ -457,16 +457,17 @@ def bytes_moved(name: str, args, out) -> int:
         used = qplane.shape[0] * nm.numel() * qplane.element_size()
         return used + _nbytes((nm, lm, qdiv, leaf_pix)) + _nbytes(out)
     if name == "decode_steps":
-        # the step tensors once, and per image and channel the taps of the
-        # active lanes (4 bytes each) and the words consumed; the plane is
-        # the output, written once
+        # the work's bytes, whatever the layout: 32 bytes of fields an active
+        # symbol and the step map, once for the batch; per image and channel
+        # 4 bytes a tap of an active symbol and the words consumed; the
+        # states, tables and parameters; the plane (the output) written once
         x, gptr, steps, vparams, wparams, stream, tabs = args[:7]
         rows = x.numel() // x.shape[-1]  # images x channels
-        act = steps["coef"] >= 0
-        taps = int(((steps["nbr"] >= 0) & act[..., None]).sum()) * rows * 4
+        taps = int((steps.rec[:, 1:1 + SD.TAPS] >= 0).sum()) * rows * 4
         used = int((out[2] - gptr).sum())
-        return (_nbytes((x, gptr, steps, vparams, wparams, tabs)) + taps
-                + used * stream.element_size() + _nbytes(out))
+        return (steps.num_symbols * SD.REC_WORDS * 4 + _nbytes(steps.step_map) + taps
+                + _nbytes((x, gptr, vparams, wparams, tabs)) + used * stream.element_size()
+                + _nbytes(out))
     if name != "decode_scan_wave":
         return _nbytes(args) + _nbytes(out)
     x, gptr, buckets, active, stream, tabs = args
@@ -485,18 +486,33 @@ def check(name: str, shape, device, seed: int = 0, timed: bool = False,
                       {"shape": list(shape), "images": images, "kind": kind})
 
 
+def _design_kw(name: str, size) -> dict:
+    """The wrapper's keywords for an entry of check_args' `clusters`: a
+    cluster size (0: the launch rule) or, for decode_steps, "block" (the
+    one-block variant forced)."""
+    if name not in CLUSTERED:
+        return {}
+    if size == "block":
+        if name != "decode_steps":
+            raise ValueError(f"{name} has no one-block variant to force")
+        return {"flags": SD.FORCE_BLOCK}
+    return {"cluster": size}
+
+
 def check_args(name: str, args, extra, device, timed: bool = False, clusters=(0,),
                info=None) -> dict:
     """Kernel `name` vs its plain version on operands (args, extra), moved
-    to `device`. decode_scan_wave and decode_steps run at each cluster size
-    of `clusters` (0: the launch rule) against one plain result. Returns
+    to `device`. decode_scan_wave and decode_steps run at each entry of
+    `clusters` (a cluster size, 0: the launch rule; for decode_steps also
+    "block", its one-block variant) against one plain result. Returns
     {**info ("shape", "images", "kind"), "cluster" (the size the first of
-    `clusters` ran at; None for the other kernels), "max_abs_err" (the
-    largest over `clusters`), "errs" ({cluster: err}), "bytes",
-    "bound_ms", "ms" (device_ms of the wrapper), "wrapper_ms" (median_ms of
-    the wrapper, the host's share included), "plain_ms"} (times None unless
-    timed; a timed clustered kernel also gives "cluster_ms" {cluster:
-    device ms})."""
+    `clusters` ran at; None for the other kernels; decode_steps also
+    "variant", "per" and "prefetch" of its plan), "max_abs_err" (the
+    largest over `clusters`), "errs" ({entry: err}), "bytes", "bound_ms",
+    "ms" (device_ms of the wrapper), "wrapper_ms" (median_ms of the
+    wrapper, the host's share included), "plain_ms"} (times None unless
+    timed; a timed clustered kernel also gives "cluster_ms" {entry: device
+    ms})."""
     wrapper, plain, _, _ = KERNELS[name]
     args = tuple(_to(a, device) for a in args)
     extra = tuple(_to(a, device) for a in extra)
@@ -506,24 +522,24 @@ def check_args(name: str, args, extra, device, timed: bool = False, clusters=(0,
     ref = plain(*args, *extra)
     errs = {}
     for size in clusters:
-        kw = {"cluster": size} if clustered else {}
-        errs[size] = _max_abs_err(wrapper(*args, *extra, **kw), ref)
-    ran = None
+        errs[size] = _max_abs_err(wrapper(*args, *extra, **_design_kw(name, size)), ref)
+    ran, plan = None, {}
     if clustered and device.type == "cuda":
         ca = args[-1]["bits"].shape[-1]
         x = args[0]
         if name == "decode_scan_wave":
             ran = RT.decode_plan(x.shape[-2], x.shape[-1], ca, clusters[0])[0]
         else:
-            ran = SD.decode_steps_plan(x.shape[-2], x.shape[-1], ca, args[3].shape[-2],
-                                       clusters[0])[0]
+            p = SD.decode_steps_plan(x.shape[-2], x.shape[-1], ca, args[3].shape[-2],
+                                     args[2].max_len, **_design_kw(name, clusters[0]))
+            ran, plan = p.cluster, {"variant": p.variant, "per": p.per, "prefetch": p.prefetch}
     nbytes = bytes_moved(name, args, ref)
-    out = {**(info or {}), "name": name, "cluster": ran,
+    out = {**(info or {}), "name": name, "cluster": ran, **plan,
            "max_abs_err": max(errs.values()), "errs": errs, "bytes": nbytes,
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
            "ms": None, "wrapper_ms": None, "plain_ms": None}
     if timed:
-        kw = {"cluster": clusters[0]} if clustered else {}
+        kw = _design_kw(name, clusters[0])
         call = lambda: wrapper(*args, *extra, **kw)  # noqa: E731
         out["ms"] = device_ms(call)
         out["wrapper_ms"] = median_ms(call)
@@ -532,10 +548,64 @@ def check_args(name: str, args, extra, device, timed: bool = False, clusters=(0,
                                     warmup=1 if slow else 3)
         if clustered:
             out["cluster_ms"] = {
-                size: device_ms(lambda: wrapper(*args, *extra, cluster=size))
+                size: device_ms(lambda: wrapper(*args, *extra, **_design_kw(name, size)))
                 for size in clusters
             }
     return out
+
+
+# kernel D's design sweep: name -> (cluster size, flags, operands' layout);
+# each switches one feature of the launch rule's design off
+STEP_DESIGNS = {
+    "rule": (0, 0, None),
+    "no prefetch": (0, SD.NO_PREFETCH, None),
+    "prefetch": (0, SD.PREFETCH, None),
+    "slot taps (no schedule-order plane)": (0, 0, SD.slot_records),
+    "padded [S, NL] records (PR 7's operands)": (0, 0, SD.padded_records),
+    "one block forced": (0, SD.FORCE_BLOCK, None),
+    **{f"cluster {s} forced": (s, 0, None) for s in CLUSTERS},
+    **{f"cluster {s} forced, prefetch": (s, SD.PREFETCH, None) for s in CLUSTERS},
+}
+
+
+def step_design_ms(args, extra, device, designs=None) -> dict:
+    """Kernel D at each design of `designs` (names of STEP_DESIGNS, all by
+    default) on one problem (args, extra as check_args takes them): each
+    must be bit-equal to the plain version (raises otherwise). Returns
+    {name: (StepPlan, device ms)}, (None, reason) where the plan refuses
+    the design."""
+    args = tuple(_to(a, device) for a in args)
+    extra = tuple(_to(a, device) for a in extra)
+    x, gptr, steps, vparams = args[:4]
+    ca = args[6]["bits"].shape[-1]
+    ref = SD.decode_steps_plain(*args, *extra)
+    out = {}
+    for name in designs or STEP_DESIGNS:
+        cluster, flags, layout = STEP_DESIGNS[name]
+        ops = layout(steps) if layout else steps
+        try:
+            plan = SD.decode_steps_plan(x.shape[-2], x.shape[-1], ca, vparams.shape[-2],
+                                        steps.max_len, cluster, flags | ops.flags)
+        except RuntimeError as e:
+            out[name] = (None, str(e))
+            continue
+        a = args[:2] + (ops,) + args[3:]
+
+        def call():
+            return SD.decode_steps(*a, *extra, cluster=cluster, flags=flags)
+
+        err = _max_abs_err(call(), ref)
+        if err:
+            raise AssertionError(f"decode_steps design {name!r}: disagrees with its plain "
+                                 f"version ({err})")
+        out[name] = (plan, device_ms(call))
+    return out
+
+
+def step_floor_ms(steps: int, device) -> float:
+    """Device ms of `steps` empty steps of kernel D's one-block variant
+    (step_decode.step_floor_loop)."""
+    return device_ms(lambda: SD.step_floor_loop(steps, device))
 
 
 def encode_design_ms(shape, device, seed: int = 7) -> dict:

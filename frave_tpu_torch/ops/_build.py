@@ -53,8 +53,9 @@ _SIGNATURES = {
     "frave_rans_decode_wave": [_P] * 11 + [_I] * 7 + [_P],
     "frave_rans_decode_plan": [_I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "frave_exchange_loop": [_I, _I, _P, _P],
-    "frave_rans_decode_steps": [_P] * 16 + [_I] * 5 + [_L] + [_I] * 3 + [_P],
-    "frave_rans_decode_steps_plan": [_I] * 5 + [ctypes.POINTER(_I)] * 2,
+    "frave_rans_decode_steps": [_P] * 14 + [_I] * 6 + [_L] * 2 + [_I] * 5 + [_P],
+    "frave_rans_decode_steps_plan": [_I] * 7 + [ctypes.POINTER(_I)],
+    "frave_step_floor_loop": [_I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

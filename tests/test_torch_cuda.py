@@ -188,40 +188,82 @@ STEP_SHAPES = [(64, 64, 1, "parity"), (96, 80, 3, "parallel"), (16, 16, 3, "grid
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", STEP_SHAPES)
 def test_cuda_decode_steps_matches_plain(shape):
-    """Kernel D against decode_steps_plain on a real program's step tensors
+    """Kernel D against decode_steps_plain on a real program's step operands
     and the wire of the port's own container (and garbage states and
-    streams on it), one image and a batch of 2, at its launch rule's
-    cluster size and forced to every size up to 16 blocks (several blocks
+    streams on it), one image and a batch of 2: at its launch rule, its
+    one-block variant forced where a step's pairs fit one block, and its
+    cluster variant forced to every size up to 16 blocks (several blocks
     exchange plane values across the cluster every step); one launch a
-    call."""
+    call; on the valid wire also every design of the sweep
+    (kernel_check.STEP_DESIGNS: prefetch off and forced on, slot taps,
+    padded records, each forced size with and without prefetch)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
     from frave_tpu_torch.ops import step_decode as SD
 
-    clusters = (0,) + kernel_check.CLUSTERS
+    dev = torch.device("cuda")
     for kind in kernel_check.DECODE_KINDS:
         for images in (0, 2):
+            args, extra = kernel_check.problem("decode_steps", np.random.default_rng(0), shape,
+                                               kind, dev, images)
+            x, steps = args[0], args[2]
+            ca, fine = args[6]["bits"].shape[-1], args[3].shape[-2]
+            designs = [0] + list(kernel_check.CLUSTERS)
+            try:
+                SD.decode_steps_plan(x.shape[-2], x.shape[-1], ca, fine, steps.max_len,
+                                     flags=SD.FORCE_BLOCK)
+                designs.append("block")
+            except RuntimeError:
+                assert x.shape[-2] * steps.max_len > 2048  # only wide steps refuse it
             before = SD.decode_steps.launches
-            res = kernel_check.check("decode_steps", shape, torch.device("cuda"), kind=kind,
-                                     clusters=clusters, images=images)
+            res = kernel_check.check_args("decode_steps", args, extra, dev, clusters=designs)
             assert res["max_abs_err"] == 0, res
-            assert SD.decode_steps.launches == before + len(clusters)
+            assert SD.decode_steps.launches == before + len(designs)
+            if kind == "valid":  # every design switch, bit-equal (raises otherwise)
+                kernel_check.step_design_ms(args, extra, dev)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_steps_plan_runs_one_block_at_768x512_rgb_parity():
+    """The launch rule runs one block an image, with no cluster exchange,
+    at 768x512 RGB parity (its widest step, 638 lanes, is 1,914 pairs: two
+    a thread, with prefetch) and at 256x256 gray parity (254 lanes: one a
+    thread, without); a cluster of 16 at 2048x2048 RGB parallel's width."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    from frave_tpu_torch.codec import pipeline_torch as PT
+    from frave_tpu_torch.fractal.schedule import default_num_lanes, get_schedule
+    from frave_tpu_torch.ops import step_decode as SD
+
+    for h, w, c in ((512, 768, 3), (256, 256, 1)):
+        nl = default_num_lanes(get_schedule(h, w, mode="parity").num_symbols)
+        prog = PT.get_program(h, w, nl, c, "cuda", "parity")
+        plan = SD.decode_steps_plan(c, nl, 15, prog.num_fine, prog.steps.max_len)
+        want = ("block", 1, 2, True) if c == 3 else ("block", 1, 1, False)
+        assert tuple(plan) == want, plan
+    plan = SD.decode_steps_plan(3, 16384, 15, 11, 16384)
+    assert plan.variant == "cluster" and plan.cluster == 16, plan
 
 
 @pytest.mark.cuda
 def test_cuda_decode_steps_refuses_what_it_cannot_run():
-    """More than 16 * 8192 lanes, or a cluster size that is not a power of
-    two up to 16, raises without launching."""
+    """More than 16 * 8192 lanes, a cluster size that is not a power of two
+    up to 16, or the one-block variant forced where a step's pairs exceed
+    8 a thread, raises without launching."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
     from frave_tpu_torch.ops import step_decode as SD
 
     with pytest.raises(RuntimeError):
-        SD.decode_steps_plan(3, 65536, 15, 11)
+        SD.decode_steps_plan(3, 65536, 15, 11, 65536)
+    with pytest.raises(RuntimeError):
+        SD.decode_steps_plan(3, 16384, 15, 11, 16384, flags=SD.FORCE_BLOCK)
     args, extra = kernel_check.problem("decode_steps", np.random.default_rng(4),
                                        (64, 64, 1, "parity"), "valid", torch.device("cuda"))
     args = tuple(kernel_check._to(a, torch.device("cuda")) for a in args)
     before = SD.decode_steps.launches
     with pytest.raises(RuntimeError):
         SD.decode_steps(*args, *extra, cluster=3)
+    with pytest.raises(RuntimeError):
+        SD.decode_steps(*args, *extra, cluster=2, flags=SD.FORCE_BLOCK)
     assert SD.decode_steps.launches == before

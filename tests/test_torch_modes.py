@@ -142,21 +142,31 @@ def test_mode_matches_frave_tpu(env, h, w, c, mode, seed):
 
 @pytest.mark.parametrize("h,w,c,mode,seed", STEP_CASES)
 def test_step_tensors_and_stream_perm_match(env, h, w, c, mode, seed):
-    """The program's step tensors are pipeline_jax's decode arguments
-    (inactive lanes and absent taps there point at the zero slot n_slots),
-    its stream permutation the inverse of pipeline_jax's rank array."""
+    """The program's step operands, laid out by lane (step_decode.lane_grid),
+    are pipeline_jax's decode arguments (inactive lanes and absent taps
+    there point at the zero slot n_slots; a tap is named by the slot of
+    the schedule symbol that writes it, and a slot no symbol writes reads
+    0 as the zero slot does), its stream permutation the inverse of
+    pipeline_jax's rank array."""
     nl = ST.default_num_lanes(ST.get_schedule(h, w, mode=mode).num_symbols)
     prog_j = PJ.get_program(h, w, 9, nl, c, mode)
     prog_t = PT.get_program(h, w, nl, c, "cpu", mode)
     n = prog_t.n_slots
-    st = {k: v.numpy().astype(np.int64) for k, v in prog_t.steps.items()}
+    _, grid = SD.lane_grid(prog_t.steps)
+    grid = grid.numpy()
+    coef, taps = grid[..., 0], grid[..., 1:7]
+    lf, grp, fbkt = (a.numpy() for a in SD.unpack_meta(torch.from_numpy(grid[..., 7])))
     d_coef, d_active, d_nbr, d_lf, d_grp, d_fbkt = (np.asarray(a) for a in prog_j._dec_args[:6])
-    np.testing.assert_array_equal(np.where(st["coef"] >= 0, st["coef"], n), d_coef)
-    np.testing.assert_array_equal(st["coef"] >= 0, d_active)
-    np.testing.assert_array_equal(np.where(st["nbr"] >= 0, st["nbr"], n), d_nbr)
-    np.testing.assert_array_equal(st["lf"].astype(bool), d_lf)
-    np.testing.assert_array_equal(st["group"], d_grp)
-    np.testing.assert_array_equal(st["fbkt"], d_fbkt)
+    np.testing.assert_array_equal(np.where(coef >= 0, coef, n), d_coef)
+    np.testing.assert_array_equal(coef >= 0, d_active)
+    writer_slot = prog_t.steps.rec[:, 0].numpy()
+    written = np.zeros(n + 1, bool)
+    written[writer_slot] = True
+    np.testing.assert_array_equal(np.where(taps >= 0, writer_slot[np.clip(taps, 0, None)], n),
+                                  np.where(written[d_nbr], d_nbr, n))
+    np.testing.assert_array_equal(lf, d_lf)
+    np.testing.assert_array_equal(grp, d_grp)
+    np.testing.assert_array_equal(fbkt, d_fbkt)
     assert prog_t.rows == prog_j.rows and prog_t.num_steps == prog_j.num_steps
     rank = np.asarray(prog_j._inv_perm)
     if mode == "grid":
