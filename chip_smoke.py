@@ -7,9 +7,10 @@ Phases, each reporting on its own lines; any failed check raises and the
 script exits nonzero without printing a result:
 
   1. build   — compile the CUDA kernels (frave_tpu_torch/csrc, one nvcc
-               per source, all at once) and, beside them, the C++ frif
-               oracle (csrc/frif.cpp + csrc/geometry.cpp, g++) into
-               frave_tpu_torch/_build/, bound with ctypes here;
+               per source, all at once) and, beside them, the native host
+               library (frave_tpu_torch/native.py: csrc/geometry.cpp,
+               refbase.cpp and frif.cpp, one g++ each) into
+               frave_tpu_torch/_build/; its C++ frif codec is the oracle;
   2. kernels — each image's CodecProgram built (timed); each kernel
                against its plain PyTorch version on the same card
                tensors, bit-equal, at the shapes every image of the main
@@ -88,6 +89,25 @@ script exits nonzero without printing a result:
                   511x2 and 16x16, gray and RGB (kernel D where there is
                   no dense lattice), the oracle where it takes the shape;
                   e6 16 byte flips of the e2 container;
+               f. the host surfaces: f1 the native host library's build
+                  seconds, the 2048x2048 geometry by the native builder and
+                  by build_geometry_fast (every field bit-equal), the grid
+                  lattice build and the parity schedule with the native and
+                  the numpy layering (bit-equal), each timed cold; f2 the
+                  CLI at full width, each command in a fresh process (its
+                  wall time the user's cold start, its launch counts
+                  read back): 2048x2048 RGB grid encode (byte-equal to
+                  the in-process encode of 3c), decode (the input), decode
+                  --backend native (the input); 768x512 RGB --mode parity
+                  encode (byte-equal to e2's) and decode; f3 bench over
+                  eight 256x256 gray and two 768x512 RGB .npy; f4 the
+                  quality sweep at 512x512 gray, the predictor search at
+                  64x64 gray over 16 vectors on the card and on the CPU
+                  (same scores, same best vector), then over 64 at 256x256
+                  gray on the card, timed; f5 the metrics sink (encode/bpp,
+                  the verbose context entropies) and a profiling.trace of a
+                  768x512 RGB encode and decode that names the port's
+                  kernels;
   4. report  — encode/decode ms and MP/s, per-stage ms at every image, kernel
                3's device time per 2048x2048 RGB decode at the launch rule
                and forced to one block, kernel A's device time with and
@@ -101,21 +121,29 @@ Needs CUDA (exits 1 without it); imports neither jax nor frave_tpu.
 
 from __future__ import annotations
 
-import ctypes
+import contextlib
+import dataclasses
 import hashlib
+import importlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
 import frave_tpu_torch
 from frave_tpu_torch import EncoderOptions, EncoderQuality, RasterImage, kernel_check
+from frave_tpu_torch import native as N
+from frave_tpu_torch import profiling
 from frave_tpu_torch.codec import grid_decode as GD
 from frave_tpu_torch.codec import pipeline_torch as PT
 from frave_tpu_torch.codec.channel_transform import choose_transform
@@ -127,8 +155,12 @@ from frave_tpu_torch.entropy.tables import (
     _GRID_LOG2,
     _LAPLACE_GRID_ROWS,
 )
-from frave_tpu_torch.fractal.geometry import get_geometry
+from frave_tpu_torch.fractal import geometry_fast as GF
+from frave_tpu_torch.fractal import lattice as LT
+from frave_tpu_torch.fractal import schedule as S
+from frave_tpu_torch.fractal.geometry import BASE_FRAC_DEPTH, get_geometry
 from frave_tpu_torch.fractal.schedule import default_num_lanes, get_schedule
+from frave_tpu_torch.metrics import get_metrics
 from frave_tpu_torch.ops import _build
 from frave_tpu_torch.ops import lifting as L
 from frave_tpu_torch.ops import rans_torch as RT
@@ -137,9 +169,7 @@ from frave_tpu_torch.testing import REF_IMAGES, natural_image
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REFS = os.path.join(HERE, "tests", "data", "torch_port_refs.json")
-ORACLE_SOURCES = ("csrc/frif.cpp", "csrc/geometry.cpp")
-ORACLE_HEADERS = ("csrc/geometry_core.h",)
-ORACLE_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off")
+CLI = importlib.import_module("frave_tpu_torch.cli.main")  # the module, not cli.main()
 CLUSTERS = (0,) + kernel_check.CLUSTERS  # 0: the launch rule
 EXCHANGE_ROWS = 266  # rows of one 2048x2048 RGB decode
 BATCH = 64  # bench.py's batch: 64 256x256 gray images
@@ -153,79 +183,57 @@ E_IMAGES = (("e1", "2048x2048 RGB", "parallel", 0), ("e2", "768x512 RGB", "parit
 E_BATCH = 4  # e3: 256x256 gray parity images in one decode batch
 TINY = ((1, 1), (2, 511), (511, 2), (16, 16))  # e5: grid shapes with few cells
 ORACLE_GRID = 2  # the oracle's mode number of grid mode
+# path f: (h, w, c, seed) of each image; F_GRID and F_PARITY are 3c's and
+# e2's images, F_BENCH (shape, count) the bench corpus
+F_GRID = (2048, 2048, 3, 4)
+F_PARITY = (512, 768, 3, 2)
+F_BENCH = (((256, 256, 1), 8), ((512, 768, 3), 2))
+F_SWEEP = (512, 512, 1, 3)
+F_SEARCH = ((64, 64, 1, 21), 16)  # on the card and on the CPU
+F_SEARCH_CARD = ((256, 256, 1, 1), 64)
+F_TRACE = (512, 768, 3, 2)
+F_KERNELS = ("fwd_lift_pixels", "rans_encode", "rans_decode_wave", "inv_lift_pixels")
+# one fresh process that runs the CLI's __main__ (what `python -m
+# frave_tpu_torch.cli ARGS` runs), then prints the kernels' launch counts
+# as the last line of its stderr
+CLI_RUNNER = (
+    "import json, runpy, sys\n"
+    "from frave_tpu_torch import kernel_check\n"
+    "sys.argv = ['fri'] + sys.argv[1:]\n"
+    "rc = 0\n"
+    "try:\n"
+    "    runpy.run_module('frave_tpu_torch.cli', run_name='__main__')\n"
+    "except SystemExit as e:\n"
+    "    rc = e.code\n"
+    "print(json.dumps({n: k[0].launches for n, k in kernel_check.KERNELS.items()}),"
+    " file=sys.stderr)\n"
+    "sys.exit(rc)\n"
+)
 
 
 # ---------------------------------------------------------------- oracle
 
 
-def start_oracle_build():
-    """Start g++ on the C++ frif oracle (nothing is written under csrc/).
-    Returns (process or None when already built, library path)."""
-    h = hashlib.sha256(" ".join(ORACLE_FLAGS).encode())
-    for rel in ORACLE_SOURCES + ORACLE_HEADERS:
-        h.update(open(os.path.join(HERE, rel), "rb").read())
-    out = _build.BUILD_DIR / f"libfrif_oracle_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return None, out
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = ["g++", *ORACLE_FLAGS, "-I", os.path.join(HERE, "csrc"),
-           *(os.path.join(HERE, s) for s in ORACLE_SOURCES), "-o", str(out) + ".tmp"]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), out
-
-
-def finish_oracle_build(proc, out):
-    if proc is not None:
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed on the frif oracle:\n{err}")
-        os.replace(str(out) + ".tmp", out)
-    return Oracle(out)
-
-
 class Oracle:
-    """ctypes binding of the C++ frif oracle's plain C interface
-    (frif_probe, frif_decode, frif_encode, frif_free)."""
-
-    def __init__(self, path):
-        lib = ctypes.CDLL(str(path))
-        P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.frif_probe.argtypes = [P, I64, ctypes.POINTER(I), ctypes.POINTER(I), ctypes.POINTER(I)]
-        lib.frif_decode.argtypes = [P, I64, P]
-        lib.frif_encode.argtypes = [I, I, I, P, I, I, I, I, ctypes.POINTER(P), ctypes.POINTER(I64)]
-        lib.frif_free.argtypes = [P]
-        for fn in (lib.frif_probe, lib.frif_decode, lib.frif_encode):
-            fn.restype = I
-        lib.frif_free.restype = None
-        self.lib = lib
+    """The C++ frif codec of the native host library (native.py) as the
+    oracle: a container or shape it refuses raises AssertionError
+    ("oracle frif_...")."""
 
     def decode(self, blob: bytes) -> np.ndarray:
-        buf = np.frombuffer(blob, dtype=np.uint8)
-        h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        rc = self.lib.frif_probe(buf.ctypes.data, len(blob), ctypes.byref(h),
-                                 ctypes.byref(w), ctypes.byref(c))
-        if rc != 0:
-            raise AssertionError(f"oracle frif_probe failed (rc={rc})")
-        out = np.empty((h.value, w.value, c.value), dtype=np.uint8)
-        rc = self.lib.frif_decode(buf.ctypes.data, len(blob), out.ctypes.data)
-        if rc != 0:
-            raise AssertionError(f"oracle frif_decode failed (rc={rc})")
-        return out
+        try:
+            return N.frif_decode_native(blob)
+        except ValueError as e:
+            raise AssertionError(f"oracle {e}") from None
 
     def encode(self, px: np.ndarray, quality: EncoderQuality, transform: int,
                mode: int = ORACLE_GRID) -> bytes:
         """The oracle's container of px (mode 0: parallel, 2: grid) at its
         default lane count."""
-        arr = np.ascontiguousarray(px, dtype=np.uint8)
-        h, w, c = arr.shape
-        ptr, n = ctypes.c_void_p(), ctypes.c_int64()
-        rc = self.lib.frif_encode(h, w, c, arr.ctypes.data, quality.value, transform, 0, mode,
-                                  ctypes.byref(ptr), ctypes.byref(n))
-        if rc != 0:
-            raise AssertionError(f"oracle frif_encode failed (rc={rc})")
+        name = {v: k for k, v in N.FRIF_MODES.items()}[mode]
         try:
-            return ctypes.string_at(ptr.value, n.value)
-        finally:
-            self.lib.frif_free(ptr)
+            return N.frif_encode_native(px, quality.value, transform, 0, name)
+        except ValueError as e:
+            raise AssertionError(f"oracle {e}") from None
 
 
 def oracle_checks(label, px, blob, port_px, quality, oracle, mode: int = ORACLE_GRID):
@@ -930,6 +938,290 @@ def path_e(dev, totals, oracle, refs, floor, checks) -> list:
     return rejected
 
 
+# ---------------------------------------------------------------- path f
+
+
+def same_fields(label: str, a, b) -> None:
+    """Every field of dataclasses a and b equal: arrays by dtype, shape and
+    value, lists element by element, the rest by ==."""
+    def equal(x, y):
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            return (isinstance(x, np.ndarray) and isinstance(y, np.ndarray)
+                    and x.dtype == y.dtype and np.array_equal(x, y))
+        return x == y
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        xs, ys = (x, y) if isinstance(x, list) else ([x], [y])
+        if len(xs) != len(ys) or not all(equal(p, q) for p, q in zip(xs, ys)):
+            raise AssertionError(f"{label}: field {f.name} differs")
+
+
+def timed(fn):
+    t = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t
+
+
+def path_f_native(h: int, w: int) -> dict:
+    """f1: the native host library at h x w, cold (the builders, not the
+    caches paths a-e filled): the geometry by the native builder and by
+    build_geometry_fast, every field bit-equal; the grid lattice build;
+    the parity schedule with the native layering and with the numpy one,
+    every field bit-equal. Returns the seconds of each."""
+    lab = f"f1 {w}x{h}"
+    nat, t_nat = timed(lambda: N.build_geometry_native(h, w, BASE_FRAC_DEPTH))
+    ref, t_np = timed(lambda: GF.build_geometry_fast(h, w, BASE_FRAC_DEPTH))
+    same_fields(f"{lab} geometry", nat, ref)
+    del ref
+    _, t_lat = timed(lambda: LT.build_lattice_grids(nat))
+    par_nat, t_par_nat = timed(lambda: S.build_schedule(nat, "parity"))
+    layer = S._layer_waves
+    S._layer_waves = S.layer_waves_plain
+    try:
+        par_np, t_par_np = timed(lambda: S.build_schedule(nat, "parity"))
+    finally:
+        S._layer_waves = layer
+    same_fields(f"{lab} parity schedule", par_nat, par_np)
+    out = {"geometry_native": t_nat, "geometry_numpy": t_np, "lattice": t_lat,
+           "parity_schedule_native": t_par_nat, "parity_schedule_numpy": t_par_np}
+    print(f"main {lab}: native geometry bit-equal to build_geometry_fast ({nat.num_tiles} "
+          f"tiles), the parity schedule with the native layering bit-equal to the numpy "
+          f"layering's ({par_nat.num_symbols} symbols, {len(par_nat.wave_sizes)} waves)")
+    print(f"report {lab} host build s (cold, one process): native library build "
+          f"{N.build_seconds if N.build_seconds is not None else 'cached'}; "
+          + json.dumps({k: round(v, 3) for k, v in out.items()}))
+    return out
+
+
+def run_cli(group, cwd) -> dict:
+    """Fresh processes running the CLI (CLI_RUNNER) in `cwd`, one for each
+    (label, args, want) of `group`, all started together; each must exit 0
+    with exactly the launch counts `want` (a kernel not named: 0). Returns
+    {label: wall seconds}."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", CLI_RUNNER, *map(str, args)], cwd=cwd,
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for _, args, _ in group]
+    walls, failed = {}, []
+    for (label, args, want), proc in zip(group, procs):
+        try:
+            _, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+        walls[label] = time.perf_counter() - t
+        cmd = f"`fri {' '.join(map(str, args))}`"
+        if proc.returncode != 0:
+            failed.append(f"{label}: {cmd} exited {proc.returncode}:\n{err[-3000:]}")
+            continue
+        launches = json.loads(err.strip().splitlines()[-1])
+        expect = {n: want.get(n, 0) for n in WRAPPERS}
+        if launches != expect:
+            failed.append(f"{label}: {cmd} launches {launches}, expected {expect}")
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return walls
+
+
+def cli_in_process(label: str, args) -> tuple:
+    """CLI.main(args) in this process -> (stdout lines, seconds); fails
+    unless it returns 0."""
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = CLI.main([str(a) for a in args])
+    secs = time.perf_counter() - t
+    if rc != 0:
+        raise AssertionError(f"{label}: `fri {' '.join(map(str, args))}` returned {rc}")
+    return buf.getvalue().splitlines(), secs
+
+
+def path_f_cli(dev, tmp, totals: dict, big_blob: bytes) -> dict:
+    """f2: the CLI at full width, each command in a fresh process with its
+    launch counts checked: F_GRID encoded (byte-equal to 3c's in-process
+    container), decoded (the input) and decoded with --backend native (the
+    input, no kernel); F_PARITY encoded with --mode parity (byte-equal to
+    the in-process encode) and decoded (the input). Returns the walls."""
+    dflag = [] if dev.type == "cuda" else ["--device", "cpu"]
+    grid_px, par_px = natural_image(*F_GRID), natural_image(*F_PARITY)
+    np.save(tmp / "grid.npy", grid_px)
+    np.save(tmp / "parity.npy", par_px)
+    waves = kernel_check.grid_shapes(*F_GRID[:3])["waves"]
+    enc = {"forward_lift_quantize_pixels": 1, "encode_scan": 1}
+    # the grid encode and decode each alone (their walls are the cold
+    # starts), then the native decode beside the parity encode
+    groups = [
+        [("grid encode", ["encode", "grid.npy", "-o", "grid.frv"], enc)],
+        [("grid decode", ["decode", "grid.frv", "-o", "grid_out.npy"],
+          {"dequantize_inverse_lift_pixels": 1, "decode_scan_wave": waves})],
+        [("grid decode --backend native (beside the parity encode)",
+          ["decode", "grid.frv", "-o", "grid_native.npy", "--backend", "native"], {}),
+         ("parity encode (beside the native decode)",
+          ["encode", "parity.npy", "-o", "parity.frv", "--mode", "parity"], enc)],
+        [("parity decode", ["decode", "parity.frv", "-o", "parity_out.npy"],
+          {"dequantize_inverse_lift_pixels": 1, "decode_steps": 1})],
+    ]
+    walls = {}
+    for group in groups:
+        walls.update(run_cli([(f"f2 {label}", args + dflag, want) for label, args, want in group],
+                             tmp))
+        for _, _, want in group:
+            for n, k in want.items():
+                totals[n] += k
+    if (tmp / "grid.frv").read_bytes() != big_blob:
+        raise AssertionError("f2: the CLI's grid container differs from the in-process encode")
+    par_blob = frave_tpu_torch.encode(par_px, EncoderOptions(mode="parity"), device=dev)
+    if (tmp / "parity.frv").read_bytes() != par_blob:
+        raise AssertionError("f2: the CLI's parity container differs from the in-process encode")
+    for name, px in (("grid_out", grid_px), ("grid_native", grid_px), ("parity_out", par_px)):
+        if not np.array_equal(np.load(tmp / f"{name}.npy"), px):
+            raise AssertionError(f"f2: {name}.npy is not the input")
+    print(f"main f2 CLI: {F_GRID[1]}x{F_GRID[0]} RGB grid and {F_PARITY[1]}x{F_PARITY[0]} RGB "
+          "parity encode -> decode in fresh processes, each container byte-equal to the "
+          "in-process encode, each decode (the native codec's too) the input; launches as "
+          "expected in each process")
+    print("report f2 CLI fresh-process wall s (the user's cold start: interpreter, imports, "
+          "CUDA context, program build, the call): "
+          + json.dumps({k[3:]: round(v, 3) for k, v in walls.items()}))
+    return walls
+
+
+def path_f_bench(dev, tmp, totals: dict) -> None:
+    """f3: `fri bench` over F_BENCH's .npy files, in this process: exit 0,
+    every image lossless, one kernel A, C and B launch a file and kernel 3
+    once per non-empty wave."""
+    corpus = tmp / "corpus"
+    corpus.mkdir()
+    want = {"encodes": 0, "waves": 0}
+    for (h, w, c), count in F_BENCH:
+        for i in range(count):
+            np.save(corpus / f"{w}x{h}x{c}_{i}.npy", natural_image(h, w, c, 500 + i))
+        want["encodes"] += count
+        want["waves"] += count * kernel_check.grid_shapes(h, w, c)["waves"]
+    dflag = [] if dev.type == "cuda" else ["--device", "cpu"]
+    zero_counts()
+    lines, secs = cli_in_process("f3 bench", ["bench", corpus, "-o", tmp / "bench_out", *dflag])
+    sync(dev)
+    for n, k in read_counts("f3 bench", want["encodes"], want["encodes"],
+                            want["waves"]).items():
+        totals[n] += k
+    for line in lines:
+        print(f"report f3 bench: {line}")
+    print(f"main f3 bench: exit 0 over {want['encodes']} .npy images ({secs:.3f} s)")
+
+
+def path_f_optimize(dev, tmp, totals: dict) -> None:
+    """f4: the quality sweep at F_SWEEP; the predictor search at F_SEARCH
+    on the card and on the CPU (same scores, same best vector); then over
+    F_SEARCH_CARD on the card through the CLI, timed."""
+    dflag = [] if dev.type == "cuda" else ["--device", "cpu"]
+    h, w, c, seed = F_SWEEP
+    np.save(tmp / "sweep.npy", natural_image(h, w, c, seed))
+    zero_counts()
+    lines, secs = cli_in_process("f4 sweep", ["optimize", tmp / "sweep.npy", *dflag])
+    sync(dev)
+    for n, k in read_counts("f4 sweep", 4, 4, 4 * kernel_check.grid_shapes(h, w, c)["waves"]
+                            ).items():
+        totals[n] += k
+    for line in lines:
+        print(f"report f4 sweep: {line}")
+    (h, w, c, seed), n_cands = F_SEARCH
+    img = RasterImage.from_array(natural_image(h, w, c, seed))
+    cands = CLI.find_predictor_vectors(n_cands)
+    zero_counts()
+    (best, res), t_dev = timed(lambda: CLI.search_predictors(img, cands, device=dev))
+    sync(dev)
+    got = {n: fn.launches for n, fn in WRAPPERS.items()}
+    runs = got["forward_lift_quantize_pixels"]
+    if dev.type == "cuda" and (runs < n_cands or got != {**{n: 0 for n in got},
+                                                         "forward_lift_quantize_pixels": runs,
+                                                         "encode_scan": runs}):
+        raise AssertionError(f"f4 search: launches {got}, expected one A and C an encode")
+    for n, k in got.items():
+        totals[n] += k
+    (best_cpu, res_cpu), t_cpu = timed(lambda: CLI.search_predictors(img, cands, device="cpu"))
+    if not np.array_equal(best, best_cpu) or [(s, tuple(v)) for s, _, v in res] != [
+            (s, tuple(v)) for s, _, v in res_cpu]:
+        raise AssertionError("f4 search: the card's and the CPU's searches disagree")
+    print(f"main f4 search {w}x{h}: {n_cands} vectors, the card's scores and best vector "
+          f"{best.astype(int).tolist()} equal the CPU's (card {t_dev:.3f} s, CPU {t_cpu:.3f} s; "
+          f"bytes card {[b for _, b, _ in res[:3]]}, CPU {[b for _, b, _ in res_cpu[:3]]})")
+    (h, w, c, seed), n_cands = F_SEARCH_CARD
+    np.save(tmp / "search.npy", natural_image(h, w, c, seed))
+    lines, secs = cli_in_process("f4 search", ["optimize", tmp / "search.npy",
+                                               "--search-predictors", "--search-limit",
+                                               n_cands, *dflag])
+    for line in lines:
+        print(f"report f4 search: {line}")
+    print(f"report f4 search {w}x{h} over {n_cands} vectors: {secs:.3f} s "
+          f"({secs / n_cands * 1e3:.1f} ms a trial encode)")
+
+
+def path_f_observe(dev, tmp, totals: dict) -> None:
+    """f5: an encode records encode/bpp and the residual means, a verbose
+    one the context entropies; a profiling.trace around one F_TRACE encode
+    and decode writes a trace naming the port's kernels (F_KERNELS)."""
+    m = get_metrics()
+    px = natural_image(256, 256, 1, 1)
+    m.reset()
+    frave_tpu_torch.encode(px, device=dev)
+    snap = m.snapshot()
+    if "encode/bpp" not in snap or "encode/mean_abs_residual_ch0" not in snap:
+        raise AssertionError(f"f5: an encode recorded only {sorted(snap)}")
+    m.reset()
+    with contextlib.redirect_stdout(io.StringIO()):
+        frave_tpu_torch.encode(px, EncoderOptions(verbose=True), device=dev)
+    m.verbose = False
+    ents = [n for n in m.snapshot() if n.startswith("encode/context_entropy_ch0_")]
+    if not ents:
+        raise AssertionError("f5: a verbose encode recorded no context entropy")
+    print(f"main f5 metrics: encode/bpp {snap['encode/bpp'][0]:.4f}, mean |residual| "
+          f"{snap['encode/mean_abs_residual_ch0'][0]:.4f}; verbose: {len(ents)} context "
+          "entropies")
+    m.reset()
+    tpx = natural_image(*F_TRACE)
+    zero_counts()
+    with profiling.trace(str(tmp / "trace"), device=dev):
+        blob = frave_tpu_torch.encode(tpx, device=dev)
+        out = frave_tpu_torch.decode(blob, device=dev).data
+        sync(dev)
+    for n, k in read_counts("f5 traced", 1, 1,
+                            kernel_check.grid_shapes(*F_TRACE[:3])["waves"]).items():
+        totals[n] += k
+    if not np.array_equal(out, tpx):
+        raise AssertionError("f5: the traced round trip is not lossless")
+    (path,) = (tmp / "trace").iterdir()
+    events = json.loads(path.read_text())["traceEvents"]
+    kern = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kern[e["name"]] = kern.get(e["name"], 0.0) + float(e.get("dur", 0.0))
+    if dev.type == "cuda":
+        missing = [k for k in F_KERNELS if not any(k in n for n in kern)]
+        if missing:
+            raise AssertionError(f"f5: the trace names no kernel like {missing} "
+                                 f"({len(kern)} kernel names)")
+        ours = {n: round(us, 1) for n, us in kern.items() if any(k in n for k in F_KERNELS)}
+        print(f"main f5 trace ({path.stat().st_size} B, {len(events)} events, {len(kern)} "
+              f"kernel names): the port's kernels' device us " + json.dumps(ours))
+
+
+def path_f(dev, totals: dict, big_blob: bytes) -> None:
+    """The host surfaces (f1-f5)."""
+    t0 = time.perf_counter()
+    path_f_native(*F_GRID[:2])
+    with tempfile.TemporaryDirectory(prefix="frave_smoke_f_") as d:
+        tmp = Path(d)
+        path_f_cli(dev, tmp, totals, big_blob)
+        path_f_bench(dev, tmp, totals)
+        path_f_optimize(dev, tmp, totals)
+        path_f_observe(dev, tmp, totals)
+    print(f"phase main host surfaces (path f) took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -940,14 +1232,18 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
     t_start = time.perf_counter()
 
-    # ---- 1. build: nvcc per kernel source and g++ on the oracle, together
+    # ---- 1. build: nvcc per kernel source and g++ on the native host
+    # library, together
     t0 = time.perf_counter()
-    oracle_proc, oracle_path = start_oracle_build()
-    _build.load_library()
-    oracle = finish_oracle_build(oracle_proc, oracle_path)
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        native = pool.submit(N.get_lib)
+        _build.load_library()
+        native.result()
+    oracle = Oracle()
     print(f"build: {time.perf_counter() - t0:.3f} s (nvcc "
           f"{_build.build_seconds if _build.build_seconds is not None else 'cached'}; "
-          f"oracle {oracle_path.name})")
+          f"g++ {N.build_seconds if N.build_seconds is not None else 'cached'}: "
+          f"{N.library_path().name})")
     for src, report in _build.ptxas_report.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
@@ -1162,6 +1458,10 @@ def main() -> int:
     # ---- 3e. the step-tensor codec
     rejected = path_e(dev, totals, oracle, refs, floor, checks)
     print(f"phase main steps done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 3f. the host surfaces
+    path_f(dev, totals, big_blob)
+    print(f"phase main host surfaces done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 4. report
     rows = [(label, px, runs[label][1], runs[label][2], lossless) for label, px in images.items()]

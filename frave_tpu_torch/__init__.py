@@ -39,7 +39,29 @@ mismatch count instead of the images.
 
 ``device="cpu"`` runs every kernel's plain PyTorch version instead (the
 tests use it); ``device="cuda"`` without CUDA raises.
+
+``EncoderOptions(backend="native")`` and ``FRIDecoder(backend="native")``
+(or ``decode(blob, backend="native")``) run the C++ frif codec of
+``csrc/frif.cpp`` instead (grid containers; the encoder also the
+parallel mode). It and the host geometry builder live in the native host
+library (``native.py``), built with g++ from ``csrc/`` into ``_build/``
+on first use; a failed build raises.
+
+The command line (``cli/``), with the JAX package's subcommands::
+
+    python -m frave_tpu_torch.cli encode x.npy -o x.frv [--device cpu]
+    python -m frave_tpu_torch.cli decode x.frv -o y.npy [--backend native]
+    python -m frave_tpu_torch.cli bench DIR        # .npy (and PIL) images
+    python -m frave_tpu_torch.cli optimize x.npy [--search-predictors --search-limit 64]
+
+Observability: ``metrics.get_metrics()`` holds what an encode records
+(``encode/bpp``, ``encode/mean_abs_residual_ch{c}``, the per-context
+entropies under ``verbose``) and the stage timers'; ``profiling.trace(dir)``
+writes a torch.profiler Chrome trace of a region, ``profiling.stage_timer``
+and ``profiling.annotate`` time and name stages.
 """
+
+__version__ = "0.1.0"
 
 from .codec.decoder import FRIDecoder, decode
 from .codec.encoder import FRIEncoder, encode
@@ -51,9 +73,14 @@ from .codec.pipeline_torch import (
     encode_pipeline_torch_stream,
     roundtrip_pipeline_torch_stream,
 )
-from .images import RasterImage
+from .images import ChannelData, ColorSpace, CompressedImage, FractalVariant, ImageMetadata, RasterImage
 
 __all__ = [
+    "ColorSpace",
+    "FractalVariant",
+    "ImageMetadata",
+    "CompressedImage",
+    "ChannelData",
     "EncoderOptions",
     "EncoderQuality",
     "RasterImage",

@@ -1,5 +1,6 @@
-"""Encoder driver: the port of frave_tpu/codec/encoder.py (FRIEncoder)
-for the torch backend. Serializes through codec/container.py."""
+"""Encoder driver: the port of frave_tpu/codec/encoder.py (FRIEncoder).
+The "torch" backend runs the PyTorch pipeline and serializes through
+codec/container.py; "native" runs the C++ frif codec (csrc/frif.cpp)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,15 @@ from ..images import ColorSpace, RasterImage
 from .container import serialize
 from .options import EncoderOptions
 from .pipeline_torch import encode_pipeline_torch
+
+BACKENDS = ("auto", "torch", "native")
+
+
+def select_backend(backend: str) -> str:
+    """"auto" -> "torch"; an unknown name raises ValueError."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} (one of {BACKENDS})")
+    return "torch" if backend == "auto" else backend
 
 
 class FRIEncoder:
@@ -39,11 +49,26 @@ class FRIEncoder:
             if height is not None and width is not None:
                 arr = arr.reshape(height, width, arr.size // (height * width))
             image = RasterImage.from_array(arr, colorspace)
+        backend = select_backend(self.opts.backend)
         if self.opts.color_transform == "trial" and image.metadata.colorspace == ColorSpace.RGB:
-            return self._encode_trial(image)
-        return serialize(encode_pipeline_torch(image, self.opts, self.device))
+            return self._encode_trial(image, backend)
+        return self._encode_one(image, backend, self.opts)
 
-    def _encode_trial(self, image: RasterImage) -> bytes:
+    def _encode_one(self, image: RasterImage, backend: str, opts: EncoderOptions) -> bytes:
+        if backend == "native":
+            from ..native import frif_encode_native
+            from .channel_transform import choose_transform
+
+            tid = 0
+            if image.metadata.colorspace == ColorSpace.RGB:
+                ct = opts.color_transform
+                tid = choose_transform(image.data, "auto" if ct == "trial" else ct,
+                                       opts.quality.name == "LOSSLESS")
+            return frif_encode_native(image.data, quality=opts.quality.value, transform=tid,
+                                      num_lanes=opts.num_lanes or 0, mode=opts.mode)
+        return serialize(encode_pipeline_torch(image, opts, self.device))
+
+    def _encode_trial(self, image: RasterImage, backend: str) -> bytes:
         """color_transform="trial" (frave_tpu FRIEncoder._encode_trial):
         encode with every candidate transform and keep the smallest
         container (the first of equal sizes). Gray images never get here:
@@ -54,8 +79,8 @@ class FRIEncoder:
             cands = ("none", "subtract-green")
         best = None
         for ctf in cands:
-            opts = dataclasses.replace(self.opts, color_transform=ctf)
-            blob = serialize(encode_pipeline_torch(image, opts, self.device))
+            blob = self._encode_one(image, backend,
+                                    dataclasses.replace(self.opts, color_transform=ctf))
             if best is None or len(blob) < len(best):
                 best = blob
         return best

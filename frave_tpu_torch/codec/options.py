@@ -1,10 +1,9 @@
 """Encoder options and quality presets.
 
-The port's copy of frave_tpu/codec/options.py, with the fields the port
-reads: each preset selects a per-tree-layer quantization table, LOSSLESS
-the all-ones table that guarantees bit-exact round trips. The JAX
-package's `backend`, `emit_coefficients` and `verbose` are left out: the
-port is the backend and has no metrics sink.
+The port's copy of frave_tpu/codec/options.py: each preset selects a
+per-tree-layer quantization table, LOSSLESS the all-ones table that
+guarantees bit-exact round trips. `backend` names the port's backends
+("torch", or "native": the C++ frif codec), not the JAX package's.
 """
 
 from __future__ import annotations
@@ -41,8 +40,15 @@ def quantization_matrix(quality: EncoderQuality) -> np.ndarray:
 
 @dataclasses.dataclass
 class EncoderOptions:
-    """What an encode does (frave_tpu.codec.options.EncoderOptions less
-    the fields above).
+    """What an encode does (frave_tpu.codec.options.EncoderOptions).
+
+    emit_coefficients: record each context's symbol histogram
+    (encode/context_hist_ch{c}_b{k}) and entropy in the metrics sink.
+    verbose: record the context entropies and echo every record.
+    backend: "auto" (= "torch"), "torch" (the PyTorch pipeline on the
+    encoder's device) or "native" (the C++ frif codec of csrc/frif.cpp,
+    grid and parallel modes, with its own fits: the prediction parameters
+    below do not reach it).
 
     num_lanes: interleaved rANS lanes; None picks
     schedule.default_num_lanes (then the rate-adaptive re-encode).
@@ -60,7 +66,10 @@ class EncoderOptions:
     """
 
     quality: EncoderQuality = EncoderQuality.LOSSLESS
+    emit_coefficients: bool = False
+    verbose: bool = False
     num_lanes: Optional[int] = None
+    backend: str = "auto"
     mode: str = "grid"
     color_transform: str = "auto"
     value_prediction_params: Optional[np.ndarray] = None

@@ -38,8 +38,16 @@ serialize) with the device's on the next: uploads go through pinned host
 memory as non_blocking copies on the current stream, and every fetch runs
 on a side CUDA stream that waits only for the event recorded after its
 own batch, so it never waits behind work queued later. The host blocks
-only on those fetches: each batch's headers, then its stream prefix (two
-per encode batch), its pixels or mismatch count (one per decode batch).
+only on those fetches: each batch's headers (with each image's residual
+sums, and its histograms under verbose or emit_coefficients), then its
+stream prefix (two per encode batch), its pixels or mismatch count (one
+per decode batch).
+
+Metrics (metrics.get_metrics()), as the JAX pipeline records them:
+encode/bpp and encode/mean_abs_residual_ch{c} an image; the context
+entropies (and, under emit_coefficients, histograms) on request; the
+_stream drivers' encode|decode/dispatch|finish wall times; and the
+stage times of a StageTimes a caller passes.
 """
 
 from __future__ import annotations
@@ -67,6 +75,7 @@ from ..fractal.schedule import (
     rate_adaptive_lanes,
 )
 from ..images import AnsContextTables, ChannelData, ColorSpace, CompressedImage, RasterImage
+from ..metrics import get_metrics
 from ..ops import torch_ops as T
 from ..ops.lifting import dequantize_inverse_lift_pixels, forward_lift_quantize_pixels
 from ..ops.rans_torch import (
@@ -78,6 +87,7 @@ from ..ops.rans_torch import (
 )
 from ..ops import step_decode as SD
 from ..ops.step_decode import decode_steps
+from ..profiling import stage_timer
 from .channel_transform import choose_transform
 from .grid_decode import build_grid_decode, build_grid_encode, get_wave_devs, wire_tables
 from .container import deserialize, serialize
@@ -112,9 +122,10 @@ def resolve_device(device) -> torch.device:
 
 class StageTimes:
     """Optional per-stage wall times (ms) of one encode or decode batch: each
-    mark() synchronises the device and charges the time since the last
-    mark to its stage. Costs one synchronisation per stage when passed,
-    nothing when not."""
+    mark() synchronises the device, charges the time since the last mark
+    to its stage and records it (in seconds) in the metrics sink under the
+    stage's name. Costs one synchronisation per stage when passed, nothing
+    when not."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -133,6 +144,7 @@ class StageTimes:
         self._sync()
         now = time.perf_counter()
         self.ms[name] = self.ms.get(name, 0.0) + (now - self._t) * 1e3
+        get_metrics().record(name, now - self._t)
         self._t = now
 
 
@@ -633,23 +645,27 @@ def _ready_event(device):
     return ev
 
 
-def _fetch(t: torch.Tensor, ready) -> np.ndarray:
-    """Copy device tensor `t` to the host once the work before `ready` is
-    done, and wait for that copy alone: on a side stream of the device
-    that waits for `ready`, into pinned memory, so work queued after
-    `ready` (the next batch) keeps the device busy meanwhile. Safe from
-    worker threads."""
-    if t.device.type == "cpu":
-        return t.numpy()
-    side = torch.cuda.Stream(device=t.device)
-    side.wait_event(ready)
-    with torch.cuda.stream(side):
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(side)
-    done.synchronize()
-    return host.numpy()
+def _fetch(t, ready):
+    """Copy device tensor `t` (or each of a tuple of tensors, in one wait)
+    to the host once the work before `ready` is done, and wait for those
+    copies alone: on a side stream of the device that waits for `ready`,
+    into pinned memory, so work queued after `ready` (the next batch) keeps
+    the device busy meanwhile. Safe from worker threads."""
+    ts = (t,) if isinstance(t, torch.Tensor) else tuple(t)
+    if ts[0].device.type == "cpu":
+        hosts = [x.numpy() for x in ts]
+    else:
+        side = torch.cuda.Stream(device=ts[0].device)
+        side.wait_event(ready)
+        with torch.cuda.stream(side):
+            hosts = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in ts]
+            for h, x in zip(hosts, ts):
+                h.copy_(x, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        done.synchronize()
+        hosts = [h.numpy() for h in hosts]
+    return hosts[0] if isinstance(t, torch.Tensor) else hosts
 
 
 # ---------------------------------------------------------------- encode
@@ -658,13 +674,15 @@ def _fetch(t: torch.Tensor, ready) -> np.ndarray:
 @dataclasses.dataclass
 class _EncodeBatch:
     """One dispatched encode batch: its program, the device outputs
-    (packed [B, ...], hist), the quantization matrix, the images' metadata
-    and transform ids, the uploaded pixels [B, HW, C] (the device-verified
-    round trip compares against them) and the event after its work."""
+    (packed [B, ...], hist, each (image, channel)'s sum of |residual| [B,
+    C] int64), the quantization matrix, the images' metadata and transform
+    ids, the uploaded pixels [B, HW, C] (the device-verified round trip
+    compares against them) and the event after its work."""
 
     prog: CodecProgram
     packed: torch.Tensor
     hist: torch.Tensor
+    resid: torch.Tensor
     qm: np.ndarray
     meta: object
     tids: List[int]
@@ -702,22 +720,64 @@ def _encode_dispatch(images: List[RasterImage], opts: EncoderOptions, device,
     packed, hist = prog.encode_exec(
         pixels, qdiv, opts.prediction_overrides(C), tids_dev, stages
     )
-    return _EncodeBatch(prog, packed, hist, qm, meta, tids, pixels, _ready_event(prog.device))
+    resid = residual_sums(hist)
+    return _EncodeBatch(prog, packed, hist, resid, qm, meta, tids, pixels,
+                        _ready_event(prog.device))
+
+
+def residual_sums(hist: torch.Tensor) -> torch.Tensor:
+    """Each (image, channel)'s sum of |residual| over its K symbols, [B, C]
+    int64 on the device, from the exact histogram hist [B, C, CA, A]: a
+    zig-zag symbol s unpacks to a residual of magnitude (s + 1) >> 1. (The
+    histogram counts a symbol at or past ALPHABET_SIZE, which the format
+    cannot code, as ALPHABET_SIZE - 1.)"""
+    mag = (torch.arange(ALPHABET_SIZE, device=hist.device, dtype=_I64) + 1) >> 1
+    return (hist.to(_I64).sum(dim=2) * mag).sum(dim=-1)
+
+
+def _record_context_stats(hist_i: np.ndarray, C: int, emit: bool) -> None:
+    """The per-context entropies of a batch's histograms [B, C, CA, A]
+    (and, with `emit`, the histograms) into the metrics sink, as
+    pipeline_jax._encode_finish records them."""
+    m = get_metrics()
+    hist = hist_i.astype(np.float64)
+    tot = hist.sum(axis=-1, keepdims=True)
+    p = np.where(tot > 0, hist / np.maximum(tot, 1), 0.0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ent = -np.where(p > 0, p * np.log2(p), 0.0).sum(axis=-1)
+    for b in range(hist.shape[0]):
+        for c in range(C):
+            for k in range(hist.shape[2]):
+                if tot[b, c, k, 0] > 0:
+                    m.record(f"encode/context_entropy_ch{c}_b{k}", float(ent[b, c, k]))
+            if emit:
+                for k in range(hist.shape[2]):
+                    m.record_array(f"encode/context_hist_ch{c}_b{k}", hist_i[b, c, k])
 
 
 def _encode_finish(enc: _EncodeBatch, opts: EncoderOptions) -> List[CompressedImage]:
-    """Fetch one batch's headers (with each image's stream total), then the
-    stream prefix the largest total needs, and unpack them into one
-    container an image."""
+    """Fetch one batch's headers (with each image's stream total and
+    residual sums, and under verbose or emit_coefficients its histograms),
+    then the stream prefix the largest total needs; record the metrics and
+    unpack one container an image."""
     prog = enc.prog
     hw = prog.hdr_words
-    head = _fetch(enc.packed[:, :hw], enc.ready)
+    stats = opts.verbose or opts.emit_coefficients
+    first = _fetch((enc.packed[:, :hw], enc.resid) + ((enc.hist,) if stats else ()), enc.ready)
+    head, resid = first[0], first[1]
     totals = head[:, hw - 1].astype(np.int64)
     need = int((totals.max() + 1) // 2)
     tail = _fetch(enc.packed[:, hw : hw + need], enc.ready)
     C = prog.channels
+    m = get_metrics()
+    m.verbose = m.verbose or opts.verbose
+    if stats:
+        _record_context_stats(first[2], C, opts.emit_coefficients)
     out = []
     for b in range(head.shape[0]):
+        for c in range(C):
+            m.record(f"encode/mean_abs_residual_ch{c}", int(resid[b, c]) / prog.num_symbols)
+        m.record("encode/bpp", 16.0 * int(totals[b]) / (prog.height * prog.width))
         stream = np.ascontiguousarray(tail[b]).view(np.uint16)[: totals[b]].copy()
         channel_data, est_payload = _unpack_channels(head[b], prog)
         out.append(
@@ -781,12 +841,15 @@ def encode_pipeline_torch_stream(
     out: List[CompressedImage] = []
     pending = None
     for i in range(0, len(images), batch_size):
-        enc = _encode_dispatch(images[i : i + batch_size], opts, device)
+        with stage_timer("encode/dispatch"):
+            enc = _encode_dispatch(images[i : i + batch_size], opts, device)
         if pending is not None:
-            out.extend(_encode_finish(pending, opts))
+            with stage_timer("encode/finish"):
+                out.extend(_encode_finish(pending, opts))
         pending = enc
     if pending is not None:
-        out.extend(_encode_finish(pending, opts))
+        with stage_timer("encode/finish"):
+            out.extend(_encode_finish(pending, opts))
     return _maybe_reencode_flat(images, out, opts, device)
 
 
@@ -915,12 +978,15 @@ def decode_pipeline_torch_stream(
     out: List[RasterImage] = []
     pending = None
     for i in range(0, len(images), batch_size):
-        dec = _decode_dispatch(images[i : i + batch_size], device)
+        with stage_timer("decode/dispatch"):
+            dec = _decode_dispatch(images[i : i + batch_size], device)
         if pending is not None:
-            out.extend(_decode_finish(pending))
+            with stage_timer("decode/finish"):
+                out.extend(_decode_finish(pending))
         pending = dec
     if pending is not None:
-        out.extend(_decode_finish(pending))
+        with stage_timer("decode/finish"):
+            out.extend(_decode_finish(pending))
     return out
 
 

@@ -5,9 +5,11 @@ The port's copy of frave_tpu/fractal/geometry.py: one host computation per
 gather, the coefficient masks, the neighbour slots of every mode (nbr_idx,
 the parity mode's same-level taps; nbr_par, the parent-resolution taps of
 the parallel and grid modes), the per-level canonical slot lists and the
-tile-lattice neighbours as numpy arrays. The builder is the vectorized one
-(fractal/geometry_fast.py), with no native library; the JAX package's
-loop-based reference builder is left out.
+tile-lattice neighbours as numpy arrays. get_geometry builds them with the
+native library (native.build_geometry_native, csrc/geometry.cpp); the
+vectorized numpy builder (fractal/geometry_fast.py) is its plain version,
+which the tests hold it equal to. The JAX package's loop-based reference
+builder is left out.
 
 Coordinate conventions: a position is a complex integer (re, im) with
 re = x (column) and im = y (row). A "flat coefficient index" is
@@ -156,15 +158,15 @@ _cache_lock = threading.Lock()
 
 
 def get_geometry(height: int, width: int, depth: int = BASE_FRAC_DEPTH) -> FractalGeometry:
-    """Cached geometry per (h, w, depth), built by
-    geometry_fast.build_geometry_fast."""
+    """Cached geometry per (h, w, depth), built by the native library
+    (native.build_geometry_native)."""
     key = (height, width, depth)
     with _cache_lock:
         geo = _geometry_cache.get(key)
     if geo is None:
-        from .geometry_fast import build_geometry_fast
+        from ..native import build_geometry_native
 
-        geo = build_geometry_fast(height, width, depth)
+        geo = build_geometry_native(height, width, depth)
         with _cache_lock:
             _geometry_cache[key] = geo
     return geo

@@ -38,10 +38,22 @@ MODES = ("grid", "parallel", "parity")
 def _layer_waves(num_nodes: int, deps: np.ndarray) -> np.ndarray:
     """Longest-path layering. deps: [num_nodes, d] int64 node indices or
     -1. Returns the wave of each node (0-based): 0 without dependencies,
-    else 1 + the largest wave among them. Level-synchronous Kahn in numpy
-    (the nodes whose dependencies all sit in waves < L form wave L), the
-    JAX package's Kahn queue and native layering giving the same waves.
-    Raises on a cycle."""
+    else 1 + the largest wave among them. Three columns (the parity
+    schedule's causal taps) go through the native Kahn layering
+    (native.layer_waves_native), as in the JAX package; any other width
+    through layer_waves_plain. Raises on a cycle."""
+    if deps.ndim == 2 and deps.shape[1] == 3:
+        from ..native import layer_waves_native
+
+        return layer_waves_native(deps).astype(np.int64)
+    return layer_waves_plain(num_nodes, deps)
+
+
+def layer_waves_plain(num_nodes: int, deps: np.ndarray) -> np.ndarray:
+    """_layer_waves in numpy: level-synchronous Kahn (the nodes whose
+    dependencies all sit in waves < L form wave L), giving the waves of
+    the native layering and the JAX package's Kahn queue. Raises on a
+    cycle."""
     wave = np.full(num_nodes, -1, dtype=np.int64)
     d = deps.shape[1] if deps.ndim == 2 else 0
     src = deps.reshape(-1).astype(np.int64)

@@ -50,9 +50,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def port_opts(opts: EncoderOptions) -> PO.EncoderOptions:
     """frave_tpu's EncoderOptions as the port's, field by field (the
-    fields the port has; the quality preset by name)."""
+    fields the port has; the quality preset by name; frave_tpu's "jax",
+    "numpy" and "auto" backends as the port's "auto", "native" as
+    "native")."""
     kw = {f.name: getattr(opts, f.name) for f in dataclasses.fields(PO.EncoderOptions)}
     kw["quality"] = PO.EncoderQuality[opts.quality.name]
+    kw["backend"] = "native" if opts.backend == "native" else "auto"
     return PO.EncoderOptions(**kw)
 
 
