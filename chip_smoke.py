@@ -108,6 +108,26 @@ script exits nonzero without printing a result:
                   the verbose context entropies) and a profiling.trace of a
                   768x512 RGB encode and decode that names the port's
                   kernels;
+               g. the parallel layer (frave_tpu_torch.parallel): g0 the
+                  tp decode's step kernels 3T and DT chained over whole
+                  decodes with the lanes split over 2 ranks, bit-equal to
+                  their plain versions chained the same way and to the
+                  one-card plain decode (3T on the largest 2048x2048 RGB
+                  wave on valid and garbage streams, DT on e2's parity
+                  program's valid stream and e1's parallel program's
+                  garbage; one launch's device ms beside its byte
+                  bound); g1 a gloo world of 2 ranks on
+                  the card: the dp 1 x tp 2 encode of the 2048x2048 RGB
+                  image (halo rings, tp-summed fits and histogram, kernel
+                  C over each rank's lane window) byte-equal to 3c's
+                  one-card container and decoded by the oracle, the tp
+                  decode of it (kernel 3T a row) and of e1's and e2's
+                  containers (kernel DT a step), each the input, and the
+                  dp decode of 4 768x512 RGB containers; every rank's
+                  launch counts read back; the per-row and per-step
+                  exchange's wall; g2 a 1-rank NCCL world, the same
+                  encode and dp decode; g3 the CorpusRunner on 2 ranks
+                  over a .npy corpus and a resume that re-encodes none;
   4. report  — encode/decode ms and MP/s, per-stage ms at every image, kernel
                3's device time per 2048x2048 RGB decode at the launch rule
                and forced to one block, kernel A's device time with and
@@ -918,9 +938,9 @@ def path_e_small(dev, totals, oracle, e2_blob) -> list:
     return rejected
 
 
-def path_e(dev, totals, oracle, refs, floor, checks) -> list:
+def path_e(dev, totals, oracle, refs, floor, checks) -> tuple:
     """The step-tensor codec at full width (e1-e6); returns the oracle's
-    rejections of e5."""
+    rejections of e5 and the e1 and e2 containers."""
     t0 = time.perf_counter()
     for src, report in _build.ptxas_report.items():
         if src == "rans_step_decode.cu":
@@ -935,7 +955,7 @@ def path_e(dev, totals, oracle, refs, floor, checks) -> list:
     path_e_batch(dev, totals, floor, checks)
     rejected = path_e_small(dev, totals, oracle, blobs["e2"])
     print(f"phase main steps (path e) took {time.perf_counter() - t0:.1f} s")
-    return rejected
+    return rejected, blobs
 
 
 # ---------------------------------------------------------------- path f
@@ -1222,6 +1242,217 @@ def path_f(dev, totals: dict, big_blob: bytes) -> None:
     print(f"phase main host surfaces (path f) took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------- path g
+
+
+G_RANKS = 2  # ranks of g1's gloo world (and g3's), all on the one card
+G_DP = 4  # g1's ShardedDecoder batch: 768x512 RGB images
+G_CORPUS = ((256, 256, 1), 6)  # g3's .npy corpus: image shape, images
+G_TIMEOUT = 600  # seconds a world of path g may take
+# DT's problems in g0: e2's parity program (valid, timed), e1's parallel
+# one (garbage)
+G_STEP_SHAPES = ((512, 768, 3, "parity"), (2048, 2048, 3, "parallel"))
+G_DEVICE, G_NCCL = "cuda", "nccl"  # the worlds' device and g2's backend
+
+
+def g_kernels(dev, big_shapes: dict, checks: dict) -> None:
+    """Kernels 3T and DT chained over whole decodes with the lanes split
+    over G_RANKS simulated ranks, against their plain versions chained the
+    same way and against the one-card plain decode, bit-equal: 3T on the
+    largest 2048x2048 RGB grid wave, valid (timed: one launch's device ms)
+    and garbage; DT on the 768x512 RGB parity program (e2's), valid
+    (timed), and on the 2048x2048 RGB parallel one (e1's), garbage (its
+    266 steps chain faster than e2's 2,334 in the plain version)."""
+    wave = big_shapes["wave"]
+    parity, parallel = G_STEP_SHAPES
+    for name, sh, kind, timed in (
+            ("tp_decode_row", wave, "valid", True), ("tp_decode_row", wave, "garbage", False),
+            ("tp_decode_step", parity, "valid", True),
+            ("tp_decode_step", parallel, "garbage", False)):
+        r = kernel_check.tp_check(name, sh, kind, dev, ranks=G_RANKS, timed=timed)
+        times = (f" one launch {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                 f"{r['bound_ms']:.5f} ms ({r['bytes']} B)" if timed else "")
+        print(f"kernel {name} {tuple(sh)} {kind}: chained over {r['launches']} launches a rank "
+              f"on {G_RANKS} ranks, max_abs_err {r['max_abs_err']} against the chained plain "
+              f"version and the one-card plain decode{times}")
+        if r["max_abs_err"] != 0:
+            raise AssertionError(f"{name} {sh} {kind}: kernel disagrees with its plain version")
+        checks.setdefault(name, []).append(r)
+
+
+def g_counts(label: str, legs: list, want: dict) -> dict:
+    """Every rank's launch counts of one leg (each zeroed when the leg
+    began) against `want` (the rest 0) and no plain decode row; returns
+    the counts summed over the ranks."""
+    total = {}
+    for rank, leg in enumerate(legs):
+        exp = {n: want.get(n, 0) for n in leg["launches"]}
+        if leg["launches"] != exp or leg["plain_rows"]:
+            raise AssertionError(f"{label} rank {rank}: launches {leg['launches']} (plain rows "
+                                 f"{leg['plain_rows']}), expected {exp}")
+        for n, k in leg["launches"].items():
+            total[n] = total.get(n, 0) + k
+    print(f"main {label}: launches a rank {json.dumps({n: k for n, k in want.items() if k})}, "
+          "every other kernel 0, plain decode rows 0")
+    return total
+
+
+def g_exchange(label: str, leg: dict, phase: str) -> str:
+    """The per-step exchange of a tp decode leg: its count and the median
+    wall ms of one (the kernel's wait, the staging copies and the gather)."""
+    secs = [s for c, s in zip(leg["collectives"], leg["collective_s"]) if c[4] == phase]
+    return (f"{len(secs)} {phase} exchanges, median {1e3 * float(np.median(secs)):.4f} ms "
+            f"(wall of the gather with its staging), {leg['wall_s']:.3f} s the decode")
+
+
+def live_steps(blob: bytes, dev) -> int:
+    """The non-empty steps of a step-tensor container's program."""
+    im = deserialize(blob)
+    m = im.metadata
+    prog = PT.get_program(m.height, m.width, im.num_lanes, m.num_channels, dev, im.mode)
+    return int((prog.steps.step_map[:, 2] > 0).sum())
+
+
+def path_g(dev, big_px, big_blob, e_blobs, oracle, big_shapes, totals, checks) -> None:
+    """The parallel layer (frave_tpu_torch.parallel) on the one card:
+    g0 kernels 3T and DT against their plain versions (g_kernels); g1 a
+    gloo world of G_RANKS ranks: ShardedEncoder (dp 1, tp G_RANKS) of the
+    2048x2048 RGB image, byte-equal to the one-card container of 3c and
+    decoded by the oracle, TPShardedDecoder of it (kernel 3T a row) and of
+    e1's parallel and e2's parity containers (kernel DT a step), each the
+    input, and ShardedDecoder over G_DP 768x512 RGB containers; g2 a
+    1-rank NCCL world: the same encode and dp decode; g3 a 2-rank
+    CorpusRunner over a .npy corpus, then a resume that re-encodes
+    nothing. Every rank's launch counts are read back from its leg."""
+    from frave_tpu_torch.parallel.multihost import merged_manifest
+    from frave_tpu_torch.parallel.world import launch
+
+    t0 = time.perf_counter()
+    g_kernels(dev, big_shapes, checks)
+    print(f"phase g kernels took {time.perf_counter() - t0:.1f} s")
+    h, w, c = big_px.shape
+    e2_px = natural_image(*REF_IMAGES[E_IMAGES[1][1]][:4])
+    rgb = [natural_image(*RGB, 3, 30 + i) for i in range(G_DP)]
+    with tempfile.TemporaryDirectory(prefix="frave_smoke_g_") as d:
+        t = Path(d)
+        np.save(t / "big.npy", big_px[None])
+        for k in ("e1", "e2"):
+            (t / f"{k}.frv").write_bytes(e_blobs[k])
+        for i, px in enumerate(rgb):
+            (t / f"rgb{i}.frv").write_bytes(frave_tpu_torch.encode(px, device=G_DEVICE))
+        dp_leg = {"op": "dp_decode", "blobs": [str(t / f"rgb{i}.frv") for i in range(G_DP)],
+                  "shape": (RGB[0], RGB[1], 3), "out": str(t / "dp.npy")}
+        enc_leg = {"op": "encode", "images": str(t / "big.npy"), "out": str(t / "enc")}
+        legs = [enc_leg,
+                {"op": "tp_decode", "blob": str(t / "enc" / "0.frv"), "shape": (h, w, c),
+                 "out": str(t / "tp_grid.npy")},
+                {"op": "tp_decode", "blob": str(t / "e1.frv"), "shape": (h, w, c),
+                 "out": str(t / "tp_e1.npy")},
+                {"op": "tp_decode", "blob": str(t / "e2.frv"), "shape": e2_px.shape,
+                 "out": str(t / "tp_e2.npy")},
+                dp_leg]
+        t1 = time.perf_counter()
+        res = launch(G_RANKS, "frave_tpu_torch.parallel.dryrun:run_legs",
+                     {"legs": legs, "dp": 1, "tp": G_RANKS, "device": G_DEVICE}, backend="gloo",
+                     device=G_DEVICE, timeout=G_TIMEOUT)
+        g1_s = time.perf_counter() - t1
+        per = list(zip(*res))  # per leg: every rank's result
+        sharded = (t / "enc" / "0.frv").read_bytes()
+        if sharded != big_blob:
+            raise AssertionError("g1: the sharded 2048x2048 RGB container differs from the "
+                                 "one-card container")
+        if not np.array_equal(oracle.decode(sharded).reshape(big_px.shape), big_px):
+            raise AssertionError("g1: the oracle does not decode the sharded container")
+        for name, want in (("tp_grid", big_px), ("tp_e1", big_px), ("tp_e2", e2_px)):
+            if not np.array_equal(np.load(t / f"{name}.npy"), want):
+                raise AssertionError(f"g1: {name} does not decode to its image")
+        if not np.array_equal(np.load(t / "dp.npy"), np.stack(rgb)):
+            raise AssertionError("g1: the dp decode does not give the images")
+        rows = big_shapes["grid"][0]
+        rgb_waves = kernel_check.grid_shapes(*RGB, 3)["waves"]
+        g_counts("g1 encode 2048x2048 RGB dp 1 x tp 2", per[0],
+                 {"forward_lift_quantize_pixels": 1, "encode_scan": 1})
+        tot = g_counts("g1 tp decode 2048x2048 RGB grid", per[1],
+                       {"tp_decode_row": rows + 1, "dequantize_inverse_lift_pixels": 1})
+        totals["tp_decode_row"] = tot["tp_decode_row"]
+        steps = 0
+        for k, leg in (("e1", per[2]), ("e2", per[3])):
+            tot = g_counts(f"g1 tp decode {k}", leg,
+                           {"tp_decode_step": live_steps(e_blobs[k], dev) + 1,
+                            "dequantize_inverse_lift_pixels": 1})
+            steps += tot["tp_decode_step"]
+        totals["tp_decode_step"] = steps
+        g_counts(f"g1 dp decode {G_DP}x 768x512 RGB", per[4],
+                 {"decode_scan_wave": rgb_waves, "dequantize_inverse_lift_pixels": 1})
+        r0 = res[0]
+        print(f"main g1 gloo world of {G_RANKS} ranks: sharded encode byte-equal to the one-card "
+              f"container ({len(sharded)} B, halo {r0[0]['halo']}), the oracle decodes it; tp "
+              "decodes of it, e1 and e2 and the dp decode give their images")
+        print(f"report g1 walls s: world {g1_s:.3f}; encode build {r0[0]['build_s']:.3f} encode "
+              f"{r0[0]['encode_s']:.3f}; tp grid {r0[1]['wall_s']:.3f}, e1 {r0[2]['wall_s']:.3f}, "
+              f"e2 {r0[3]['wall_s']:.3f}; dp decode {r0[4]['wall_s']:.3f} (rank 0, program "
+              "builds included)")
+        print(f"report g1 tp grid 2048x2048 RGB: {g_exchange('grid', r0[1], 'row')}")
+        print(f"report g1 tp e1 parallel: {g_exchange('e1', r0[2], 'step')}")
+        print(f"report g1 tp e2 parity: {g_exchange('e2', r0[3], 'step')}")
+        enc_phases = {}
+        for cl, sec in zip(r0[0]["collectives"], r0[0]["collective_s"]):
+            enc_phases[cl[4]] = enc_phases.get(cl[4], 0.0) + sec
+        print("report g1 encode collectives s by phase (rank 0): "
+              + json.dumps({k: round(v, 4) for k, v in enc_phases.items()}))
+
+        # g2: a one-rank NCCL world, the same encode and dp decode
+        enc_leg["out"] = str(t / "enc_nccl")
+        dp_leg["out"] = str(t / "dp_nccl.npy")
+        t1 = time.perf_counter()
+        res = launch(1, "frave_tpu_torch.parallel.dryrun:run_legs",
+                     {"legs": [enc_leg, dp_leg], "dp": 1, "tp": 1, "device": G_DEVICE},
+                     backend=G_NCCL, device=G_DEVICE, timeout=G_TIMEOUT)
+        g2_s = time.perf_counter() - t1
+        if (t / "enc_nccl" / "0.frv").read_bytes() != big_blob:
+            raise AssertionError("g2: the NCCL world's container differs from the one-card one")
+        if not np.array_equal(np.load(t / "dp_nccl.npy"), np.stack(rgb)):
+            raise AssertionError("g2: the NCCL dp decode does not give the images")
+        g_counts("g2 nccl encode", [res[0][0]], {"forward_lift_quantize_pixels": 1,
+                                                 "encode_scan": 1})
+        g_counts("g2 nccl dp decode", [res[0][1]], {"decode_scan_wave": rgb_waves,
+                                                    "dequantize_inverse_lift_pixels": 1})
+        print(f"main g2 NCCL world of 1 rank: encode byte-equal, dp decode the images; world "
+              f"{g2_s:.3f} s, encode {res[0][0]['encode_s']:.3f} s")
+
+        # g3: the corpus runner, two ranks a host each, then a resume
+        (shape, n) = G_CORPUS
+        corpus = t / "corpus"
+        corpus.mkdir()
+        imgs = {}
+        for i in range(n):
+            px = natural_image(*shape[:2], shape[2], 40 + i)
+            np.save(corpus / f"img{i}.npy", px[..., 0] if shape[2] == 1 else px)
+            imgs[f"img{i}"] = px
+        kw = {"corpus_dir": str(corpus), "output_dir": str(t / "corpus_out"), "batch_size": 2,
+              "device": G_DEVICE}
+        t1 = time.perf_counter()
+        first = launch(G_RANKS, "frave_tpu_torch.parallel.multihost:run_corpus", kw,
+                       backend="gloo", device=G_DEVICE, timeout=G_TIMEOUT)
+        g3_s = time.perf_counter() - t1
+        again = launch(G_RANKS, "frave_tpu_torch.parallel.multihost:run_corpus", kw,
+                       backend="gloo", device=G_DEVICE, timeout=G_TIMEOUT)
+        merged = merged_manifest(str(t / "corpus_out"))
+        if merged["num_done"] != n or merged["num_failed"] or sorted(merged["hosts"]) != [0, 1]:
+            raise AssertionError(f"g3: merged manifest {merged['num_done']} done, "
+                                 f"{merged['num_failed']} failed, hosts {merged['hosts']}")
+        if [r["ts"] for r in again] != [r["ts"] for r in first]:
+            raise AssertionError("g3: the resume re-encoded images")
+        for stem, px in imgs.items():
+            out = frave_tpu_torch.decode((t / "corpus_out" / f"{stem}.frv").read_bytes(),
+                                         device=G_DEVICE).data
+            if not np.array_equal(out, px):
+                raise AssertionError(f"g3: {stem} does not decode to its image")
+        print(f"main g3 CorpusRunner on {G_RANKS} ranks: {n} {shape} .npy images done, each "
+              f"decodes to its image; the resume re-encodes none; run {g3_s:.3f} s")
+    print(f"phase main parallel layer (path g) took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1456,12 +1687,16 @@ def main() -> int:
     print(f"phase main batches done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 3e. the step-tensor codec
-    rejected = path_e(dev, totals, oracle, refs, floor, checks)
+    rejected, e_blobs = path_e(dev, totals, oracle, refs, floor, checks)
     print(f"phase main steps done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 3f. the host surfaces
     path_f(dev, totals, big_blob)
     print(f"phase main host surfaces done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 3g. the parallel layer
+    path_g(dev, big_px, big_blob, e_blobs, oracle, shapes[big_label], totals, checks)
+    print(f"phase main parallel layer done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 4. report
     rows = [(label, px, runs[label][1], runs[label][2], lossless) for label, px in images.items()]
@@ -1519,6 +1754,15 @@ def main() -> int:
             entry.update({k: at[k] for k in ("variant", "per", "prefetch", "steps",
                                              "exchange_floor_ms", "step_floor_ms")})
         kernels.append(entry)
+    for name, (_, _, src, replaces) in kernel_check.TP_KERNELS.items():
+        rs = checks[name]
+        at = [r for r in rs if r["ms"] is not None][0]
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": totals[name],
+                        "max_abs_err": max(r["max_abs_err"] for r in rs),
+                        "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+                        "bound_by": "bytes", "library_ms": None, "shape": at["shape"],
+                        "ranks": at["ranks"]})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -237,6 +237,44 @@ def wire_tables(lap, wire_bits, offpk, scpk):
     return decode_tables(cdfs, bits)
 
 
+def wave_chain(waves: List[WaveDev], vparams, wparams, qrows, scan_wave) -> None:
+    """The dense decode's wave chain over [rows, ...] (image, channel) rows:
+    each wave's contexts from tap planes of the decoded values before it
+    (wave 0 context-free, wave 1 off wave 0's DC grid, wave 2 off the DC
+    grid, every later wave off its parent grid's broadcast), then
+    scan_wave(wd, buckets [rows, kw], predictions) -> values [rows, kw]
+    int32, stored at the wave's slots of qrows [rows, n_slots]."""
+    rows = qrows.shape[0]
+    w0, w1, w2 = waves[0], waves[1], waves[2]
+    z = torch.zeros((rows, w0.kw, 6), dtype=torch.int32, device=qrows.device)
+    bk0, pr0 = _wave_contexts(w0, z, vparams, wparams)
+    v0 = scan_wave(w0, bk0, pr0)
+    qrows[:, w0.wslot] = v0
+    dcA = _to_grid(w0, v0)
+
+    planes = _tap_planes(w1, dcA, None)
+    bk1, pr1 = _wave_contexts(w1, _pack_tap_vals(w1, planes), vparams, wparams)
+    v1 = scan_wave(w1, bk1, pr1)
+    qrows[:, w1.wslot] = v1
+    dc = _to_grid(w1, v1, base=dcA)
+
+    # wave 2 (root-HF: taps = neighbour DC values)
+    planes = _tap_planes(w2, dc, None)
+    bk2, pr2 = _wave_contexts(w2, _pack_tap_vals(w2, planes), vparams, wparams)
+    v2 = scan_wave(w2, bk2, pr2)
+    qrows[:, w2.wslot] = v2
+
+    # HF levels: parent broadcast -> shifts -> rows
+    parent = _to_grid(w2, v2)
+    for wd in waves[3:]:
+        pv = _broadcast_parent(wd, parent)
+        planes = _tap_planes(wd, pv, parent)
+        bk, pr = _wave_contexts(wd, _pack_tap_vals(wd, planes), vparams, wparams)
+        vv = scan_wave(wd, bk, pr)
+        qrows[:, wd.wslot] = vv
+        parent = _to_grid(wd, vv)
+
+
 def build_grid_decode(prog, geo, waves: List[WaveDev]):
     """The dense decode for a grid-mode CodecProgram. Returns
     decode(states [B, C, NL] int64, stream [B, W] int32, wire_bits
@@ -265,55 +303,25 @@ def build_grid_decode(prog, geo, waves: List[WaveDev]):
         # the fits of every (image, channel) row
         vparams = vparams.reshape((BC,) + vparams.shape[2:])
         wparams = wparams.reshape((BC,) + wparams.shape[2:])
-        x = states
-        gptr = torch.zeros((B,), dtype=_I64, device=dev)
+        state = {"x": states, "gptr": torch.zeros((B,), dtype=_I64, device=dev)}
         # [B, C, n_slots] (n_slots = 512 T: rows 16-byte aligned for kernel
         # B's vector loads), written through its [B*C, n_slots] view
         qplane = torch.zeros((B, C, n_slots), dtype=torch.int32, device=dev)
-        qrows = qplane.view(BC, n_slots)
 
-        def scan_wave(wd, buckets, preds, x, gptr):
+        def scan_wave(wd, buckets, preds):
             """The wave's rows for [B*C, kw] buckets and predictions ->
             values [B*C, kw]; one decode_scan_wave launch for the batch."""
             if wd.rows == 0:
-                return preds.new_zeros((BC, 0)), x, gptr
+                return preds.new_zeros((BC, 0)).to(torch.int32)
             pad = wd.rows * nl - wd.kw
             bk = torch.nn.functional.pad(buckets.to(torch.int32), (0, pad))
             bk = bk.reshape(B, C, wd.rows, nl).transpose(1, 2).contiguous()  # [B, rows, C, NL]
-            syms, x, gptr = decode_scan_wave(x, gptr, bk, wd.active_rows, stream, tabs)
+            syms, state["x"], state["gptr"] = decode_scan_wave(
+                state["x"], state["gptr"], bk, wd.active_rows, stream, tabs)
             syms = syms.transpose(1, 2).reshape(BC, wd.rows * nl)[:, : wd.kw]
-            values = (T.unpack_signed(syms) + preds).to(torch.int32)
-            return values, x, gptr
+            return (T.unpack_signed(syms) + preds).to(torch.int32)
 
-        # wave 0 (DC phase A: context-free) + wave 1 (phase B)
-        w0, w1, w2 = waves[0], waves[1], waves[2]
-        z = torch.zeros((BC, w0.kw, 6), dtype=torch.int32, device=dev)
-        bk0, pr0 = _wave_contexts(w0, z, vparams, wparams)
-        v0, x, gptr = scan_wave(w0, bk0, pr0, x, gptr)
-        qrows[:, w0.wslot] = v0
-        dcA = _to_grid(w0, v0)
-
-        planes = _tap_planes(w1, dcA, None)
-        bk1, pr1 = _wave_contexts(w1, _pack_tap_vals(w1, planes), vparams, wparams)
-        v1, x, gptr = scan_wave(w1, bk1, pr1, x, gptr)
-        qrows[:, w1.wslot] = v1
-        dc = _to_grid(w1, v1, base=dcA)
-
-        # wave 2 (root-HF: taps = neighbour DC values)
-        planes = _tap_planes(w2, dc, None)
-        bk2, pr2 = _wave_contexts(w2, _pack_tap_vals(w2, planes), vparams, wparams)
-        v2, x, gptr = scan_wave(w2, bk2, pr2, x, gptr)
-        qrows[:, w2.wslot] = v2
-
-        # HF levels: parent broadcast -> shifts -> rows
-        parent = _to_grid(w2, v2)
-        for wd in waves[3:]:
-            pv = _broadcast_parent(wd, parent)
-            planes = _tap_planes(wd, pv, parent)
-            bk, pr = _wave_contexts(wd, _pack_tap_vals(wd, planes), vparams, wparams)
-            vv, x, gptr = scan_wave(wd, bk, pr, x, gptr)
-            qrows[:, wd.wslot] = vv
-            parent = _to_grid(wd, vv)
+        wave_chain(waves, vparams, wparams, qplane.view(BC, n_slots), scan_wave)
         if stages is not None:
             stages.mark("decode/waves")
 
@@ -328,6 +336,16 @@ def build_grid_decode(prog, geo, waves: List[WaveDev]):
         return out
 
     return decode
+
+
+def fit_stride(kw: int) -> int:
+    """The subsampling stride of a wave of kw cells in the dense encode's
+    fits: FRAVE_FIT_CAP, read as the JAX package reads it, caps the Gram
+    samples of a predictor group (0 = none) at every stride-th cell in
+    lane order; the fitted values travel on the wire, so subsampling
+    moves only the rate."""
+    cap = int(os.environ.get("FRAVE_FIT_CAP", str(1 << 17)))
+    return -(-kw // cap) if (cap > 0 and kw > cap) else 1
 
 
 def build_grid_encode(prog, geo, sched, waves: List[WaveDev]):
@@ -345,13 +363,9 @@ def build_grid_encode(prog, geo, sched, waves: List[WaveDev]):
     if sched.num_fine != len(waves):
         raise AssertionError("one predictor group per wave expected")
     dev = prog.device
-    # FRAVE_FIT_CAP, read as the JAX package reads it: the Gram-sample cap
-    # per predictor group (0 = none); the fitted values travel on the
-    # wire, so subsampling moves only the rate
-    cap = int(os.environ.get("FRAVE_FIT_CAP", str(1 << 17)))
     sub_idx = []
     for wd in waves:
-        stride = -(-wd.kw // cap) if (cap > 0 and wd.kw > cap) else 1
+        stride = fit_stride(wd.kw)
         if stride == 1:
             sub_idx.append((wd.pack_idx, wd.tap_valid, wd.wslot))
             continue

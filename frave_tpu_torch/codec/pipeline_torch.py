@@ -227,16 +227,18 @@ def _width_feats(Xs: torch.Tensor) -> torch.Tensor:
     )
 
 
-def fit_predictors(Xs_l, ys_l, overrides):
+def fit_predictors(Xs_l, ys_l, overrides, reduce=None):
     """Per-group predictor fits of every row: Xs_l / ys_l are per-group
     tap values [rows, k_g, 6] and targets [rows, k_g] (integer values), a
     row one (image, channel) of a batch. Value parameters by least squares,
     rounded to the f16 wire values; width parameters fitted to the
     |residuals| of those rounded values. `overrides` = (vp [rows, F, 6],
     wp, use_w) tensors pin the parameters instead (the width fit still runs
-    when only the value parameters are pinned). Returns (vparams, wparams)
-    [rows, F, 6] f32 — ONE tensor each, read by both the symbol math and
-    the wire header.
+    when only the value parameters are pinned). `reduce`, where given, sums
+    each pair of normal equations (G, b) over the shards of a sharded
+    encode before its solve: each shard passes its own samples. Returns
+    (vparams, wparams) [rows, F, 6] f32 — ONE tensor each, read by both
+    the symbol math and the wire header.
 
     The sums and solves run in float64 and round to f32 at the end: the
     value Grams of integer taps are exact there (the width Grams all but
@@ -251,6 +253,8 @@ def fit_predictors(Xs_l, ys_l, overrides):
         bv = torch.stack(
             [torch.einsum("ckx,ck->cx", X, y) for X, y in zip(Xs_l, ys_l)], dim=1
         )
+        if reduce is not None:
+            G, bv = reduce(G, bv)
         vparams = _gram_solve(G, bv).to(_F32)
     else:
         vparams = vp_ovr
@@ -265,7 +269,10 @@ def fit_predictors(Xs_l, ys_l, overrides):
             Fs = _width_feats(X)
             Gws.append(torch.einsum("ckx,cky->cxy", Fs, Fs))
             bws.append(torch.einsum("ckx,ck->cx", Fs, rg))
-        wparams = _gram_solve(torch.stack(Gws, dim=1), torch.stack(bws, dim=1)).to(_F32)
+        Gw, bw = torch.stack(Gws, dim=1), torch.stack(bws, dim=1)
+        if reduce is not None:
+            Gw, bw = reduce(Gw, bw)
+        wparams = _gram_solve(Gw, bw).to(_F32)
     return vparams, T.f16_wire_round(wparams)
 
 
@@ -365,6 +372,7 @@ class CodecProgram:
                 waves = get_wave_devs(geo, sched, nl, n_slots, dev)
             except DenseGridUnavailable:
                 pass  # tiny shapes: the step tensors below decode the same wire
+        self.waves = waves
         if waves is not None:
             self.decode_fn = build_grid_decode(self, geo, waves)
             genc = os.environ.get("FRAVE_GRID_ENC", "1")
@@ -456,36 +464,64 @@ class CodecProgram:
         # schedule order, as kernel C reads them
         buckets = buckets.to(_I32).contiguous()
         symbols = symbols.to(_I32).contiguous()
-        # exact histogram of (row, bucket, symbol), into a buffer of known
-        # size (bincount would read the largest id back to size its output)
-        row = torch.arange(BC, device=dev, dtype=_I64)[:, None]
-        ids = (row * CONTEXT_AMOUNT + buckets.to(_I64)) * ALPHABET_SIZE + torch.clamp(
-            symbols.to(_I64), 0, ALPHABET_SIZE - 1
-        )
-        ids = ids.reshape(-1)
-        hist = torch.zeros(BC * CONTEXT_AMOUNT * ALPHABET_SIZE, dtype=_I64, device=dev)
-        hist = hist.index_add_(0, ids, torch.ones_like(ids)).reshape(
-            B, C, CONTEXT_AMOUNT, ALPHABET_SIZE
-        )
-        scales = select_scales_device(hist, self.glog2, self.gzero)
-        bits, freqs, cdfs, off_mask = finalize_contexts_device(hist, self.lap, scale_idx=scales)
-        # expected code length under the finalized tables (f32 per channel)
-        hf = hist.to(_F32)
-        exp_bits = torch.where(
-            hist > 0,
-            hf * (bits.to(_F32)[..., None] - torch.log2(torch.clamp(freqs.to(_F32), min=1.0))),
-            torch.zeros((), dtype=_F32, device=dev),
-        ).sum(dim=(2, 3))
+        hist = self.histogram(buckets, symbols, B)
+        tables = self.tables(hist)
         if stages is not None:
             stages.mark("encode/tables")
 
         K = self.num_symbols
+        bits, freqs, cdfs = tables[:3]
         states, words, flags = encode_scan(
             symbols.view(B, C, K), buckets.view(B, C, K), self.row_k0, self.row_len,
             freqs.to(_I32), cdfs.to(_I32), bits.to(_I32), self.nl,
         )
         if stages is not None:
             stages.mark("encode/rans")
+        packed = self.pack(states, words, flags, tables, vparams, wparams)
+        if stages is not None:
+            stages.mark("encode/compact")
+        return packed, hist.to(_I32)
+
+    def histogram(self, buckets, symbols, images: int, valid=None):
+        """The exact histogram [B, C, CA, 1024] int64 of (row, bucket,
+        symbol) over buckets / symbols [B*C, K'] (the rows of `images`
+        images; `valid` [K'] bool counts only those positions), into a
+        buffer of known size (bincount would read the largest id back to
+        size its output)."""
+        BC, dev = buckets.shape[0], buckets.device
+        row = torch.arange(BC, device=dev, dtype=_I64)[:, None]
+        ids = (row * CONTEXT_AMOUNT + buckets.to(_I64)) * ALPHABET_SIZE + torch.clamp(
+            symbols.to(_I64), 0, ALPHABET_SIZE - 1
+        )
+        ones = torch.ones_like(ids)
+        if valid is not None:
+            ones = ones * valid.to(_I64)
+        hist = torch.zeros(BC * CONTEXT_AMOUNT * ALPHABET_SIZE, dtype=_I64, device=dev)
+        hist = hist.index_add_(0, ids.reshape(-1), ones.reshape(-1))
+        return hist.reshape(images, BC // images, CONTEXT_AMOUNT, ALPHABET_SIZE)
+
+    def tables(self, hist):
+        """A batch's histogram -> (bits, freqs, cdfs, off_mask, scales,
+        exp_bits): the context tables of every (image, channel) and the
+        expected code length under them (f32 a channel)."""
+        scales = select_scales_device(hist, self.glog2, self.gzero)
+        bits, freqs, cdfs, off_mask = finalize_contexts_device(hist, self.lap, scale_idx=scales)
+        hf = hist.to(_F32)
+        exp_bits = torch.where(
+            hist > 0,
+            hf * (bits.to(_F32)[..., None] - torch.log2(torch.clamp(freqs.to(_F32), min=1.0))),
+            torch.zeros((), dtype=_F32, device=hist.device),
+        ).sum(dim=(2, 3))
+        return bits, freqs, cdfs, off_mask, scales, exp_bits
+
+    def pack(self, states, words, flags, tables, vparams, wparams):
+        """Kernel C's output of a batch (states [B, C, NL], words / flags
+        [B, R, C, NL]), its tables and fits -> packed [B, hdr_words +
+        ceil(K*C/2)] int32 (encode_exec's layout): each image's stream
+        compacted in its decode order, then the header row."""
+        B, C = states.shape[:2]
+        dev = states.device
+        bits, _, _, off_mask, scales, exp_bits = tables
         if self.perm is None:
             stream, total = stream_compact_grid(words, flags, self.kc)  # [B, K*C], [B]
         else:
@@ -505,10 +541,7 @@ class CodecProgram:
             ],
             dim=2,
         )
-        packed = torch.cat([headers.reshape(B, -1), total.to(_I32)[:, None], spk], dim=1)
-        if stages is not None:
-            stages.mark("encode/compact")
-        return packed, hist.to(_I32)
+        return torch.cat([headers.reshape(B, -1), total.to(_I32)[:, None], spk], dim=1)
 
     def step_operands(self, states, stream, wire_bits, offpk, scales, vparams, wparams):
         """A batch's wire fields (as decode_exec takes them) -> the operands

@@ -100,7 +100,7 @@ rans_encode_kernel(const int32_t* __restrict__ sym,
                    const int32_t* __restrict__ bits,
                    uint16_t* __restrict__ words, uint8_t* __restrict__ flags,
                    int64_t* __restrict__ states, int rows, int channels,
-                   int lanes, int contexts, int k_total) {
+                   int lanes, int contexts, int k_total, int lane0) {
   // blockIdx.y = b * channels + c: the lane set of channel c of image b
   extern __shared__ uint4 smem[];
   uint32_t* tab = reinterpret_cast<uint32_t*>(smem);
@@ -111,8 +111,8 @@ rans_encode_kernel(const int32_t* __restrict__ sym,
   int32_t* stage = meta + 3 * CH * 2;
   const int nt = blockDim.x, t = threadIdx.x;
   const int c = blockIdx.y;  // the (image, channel) row of the operands
-  const int lane = blockIdx.x * nt + t;
-  const bool live = lane < lanes;  // threads past NL keep to the barriers
+  const int lane = blockIdx.x * nt + t;  // of the window [lane0, lane0 + lanes)
+  const bool live = lane < lanes;  // threads past the window keep to the barriers
   const int chunks = (rows + CH - 1) / CH;
   const int32_t* sc = sym + static_cast<int64_t>(c) * k_total;
   const int32_t* bc = bkt + static_cast<int64_t>(c) * k_total;
@@ -133,8 +133,8 @@ rans_encode_kernel(const int32_t* __restrict__ sym,
     const int32_t* m = meta + (n % 3) * 2 * CH;
 #pragma unroll
     for (int i = 0; i < CH; ++i) {
-      const bool read = rows - 1 - n * CH - i >= 0 && lane < m[CH + i];
-      const int k = min(max(m[i] + lane, 0), k_total - 1);
+      const bool read = rows - 1 - n * CH - i >= 0 && lane0 + lane < m[CH + i];
+      const int k = min(max(m[i] + lane0 + lane, 0), k_total - 1);
       int32_t* s = stage + (((n % 2) * CH + i) * 2) * nt + t;
       cp_async4(s, sc + k, read);
       cp_async4(s + nt, bc + k, read);
@@ -194,7 +194,7 @@ rans_encode_kernel(const int32_t* __restrict__ sym,
     bool valid[CH];
 #pragma unroll
     for (int i = 0; i < CH; ++i) {
-      valid[i] = rows - 1 - n * CH - i >= 0 && lane < m[CH + i];
+      valid[i] = rows - 1 - n * CH - i >= 0 && lane0 + lane < m[CH + i];
       const int32_t* s = stage + (((n % 2) * CH + i) * 2) * nt + t;
       const int sy = min(max(s[0], 0), kAlphabet - 1);
       const int k = min(max(s[nt], 0), contexts - 1);
@@ -273,34 +273,21 @@ cudaError_t plan(int channels, int lanes, int contexts, int* chunk, int* threads
   return cudaSuccess;
 }
 
-}  // namespace
-
-// The launch rule's design point (plan): rows loaded ahead and lanes a
-// block for a grid of `channels` x `lanes` lanes (channels: the lane sets
-// of the whole batch, images x channels).
-extern "C" int frave_rans_encode_plan(int channels, int lanes, int contexts,
-                                      int* ahead, int* threads) {
-  if (channels < 1 || lanes < 1 || contexts < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(plan(channels, lanes, contexts, ahead, threads));
-}
-
 // sym / bkt [images * channels, k_total] int32, freq / cdf [images *
 // channels, contexts, 1024] int32, bits [images * channels, contexts] int32;
 // words / flags [images, rows, channels, lanes], states [images, channels,
-// lanes]. ahead / threads: rows loaded ahead, the chunk (4, 8 or 16), and
-// lanes a block (a multiple of 32 up to 512); 0 and 0 take the launch rule
-// (plan). freq, cdf and bits must be 16-byte aligned, and k_total at least
-// 1 (the wrapper sees to both).
-extern "C" int frave_rans_encode(const void* sym, const void* bkt,
-                                 const void* row_k0, const void* row_len,
-                                 const void* freq, const void* cdf,
-                                 const void* bits, void* words, void* flags,
-                                 void* states, int rows, int channels, int images,
-                                 int lanes, int contexts, int k_total,
-                                 int ahead, int threads, void* stream) {
+// lanes], of the lanes [lane0, lane0 + lanes) of each row (lane0 = 0: the
+// whole grid). ahead / threads: rows loaded ahead, the chunk (4, 8 or 16),
+// and lanes a block (a multiple of 32 up to 512); 0 and 0 take the launch
+// rule (plan). freq, cdf and bits must be 16-byte aligned, and k_total at
+// least 1 (the wrapper sees to both).
+int encode_lanes(const void* sym, const void* bkt, const void* row_k0, const void* row_len,
+                 const void* freq, const void* cdf, const void* bits, void* words,
+                 void* flags, void* states, int rows, int channels, int images, int lanes,
+                 int contexts, int k_total, int lane0, int ahead, int threads, void* stream) {
   if (rows < 0 || channels < 1 || images < 1 ||
       static_cast<int64_t>(channels) * images > 65535 || lanes < 1 || contexts < 1 ||
-      k_total < 1)
+      k_total < 1 || lane0 < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (ahead == 0 && threads == 0) {
     const cudaError_t err = plan(channels * images, lanes, contexts, &ahead, &threads);
@@ -325,7 +312,43 @@ extern "C" int frave_rans_encode(const void* sym, const void* bkt,
   uint8_t* fl = static_cast<uint8_t*>(flags);
   int64_t* st = static_cast<int64_t*>(states);
   void* args[] = {&sy, &bk, &k0, &ln, &fq, &cd, &bt, &wd, &fl, &st,
-                  &rows, &channels, &lanes, &contexts, &k_total};
+                  &rows, &channels, &lanes, &contexts, &k_total, &lane0};
   err = cudaLaunchKernel(fn, grid, dim3(threads), args, smem, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+}  // namespace
+
+// The launch rule's design point (plan): rows loaded ahead and lanes a
+// block for a grid of `channels` x `lanes` lanes (channels: the lane sets
+// of the whole batch, images x channels).
+extern "C" int frave_rans_encode_plan(int channels, int lanes, int contexts,
+                                      int* ahead, int* threads) {
+  if (channels < 1 || lanes < 1 || contexts < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(plan(channels, lanes, contexts, ahead, threads));
+}
+
+// The whole lane grid (encode_lanes at lane0 = 0).
+extern "C" int frave_rans_encode(const void* sym, const void* bkt,
+                                 const void* row_k0, const void* row_len,
+                                 const void* freq, const void* cdf,
+                                 const void* bits, void* words, void* flags,
+                                 void* states, int rows, int channels, int images,
+                                 int lanes, int contexts, int k_total,
+                                 int ahead, int threads, void* stream) {
+  return encode_lanes(sym, bkt, row_k0, row_len, freq, cdf, bits, words, flags, states, rows,
+                      channels, images, lanes, contexts, k_total, 0, ahead, threads, stream);
+}
+
+// The lanes [lane0, lane0 + lanes) of every row: one rank's window of a
+// tp-sharded encode (encode_lanes).
+extern "C" int frave_rans_encode_lanes(const void* sym, const void* bkt,
+                                       const void* row_k0, const void* row_len,
+                                       const void* freq, const void* cdf,
+                                       const void* bits, void* words, void* flags,
+                                       void* states, int rows, int channels, int images,
+                                       int lanes, int contexts, int k_total, int lane0,
+                                       int ahead, int threads, void* stream) {
+  return encode_lanes(sym, bkt, row_k0, row_len, freq, cdf, bits, words, flags, states, rows,
+                      channels, images, lanes, contexts, k_total, lane0, ahead, threads, stream);
 }

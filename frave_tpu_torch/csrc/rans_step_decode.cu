@@ -90,11 +90,10 @@
 // such chains one after another (chip_smoke.py prints both floors).
 
 #include "rans_common.cuh"
+#include "rans_context.cuh"
 
 namespace {
 
-constexpr int kTaps = 6;
-constexpr int kPredClamp = 255;
 constexpr int kChunkAlign = 8;  // lanes a block of a cluster owns: a multiple of this
 constexpr int kRecVec = 2;  // int4 of a record (32 bytes)
 // the launch rule runs one block an image where a step's pairs are at most
@@ -254,53 +253,6 @@ __device__ __forceinline__ Shared load_shared(const StepArgs& a, unsigned char* 
   }
   for (int k = threadIdx.x; k < a.contexts - 1; k += kThreads) s.edges[k] = a.edges[k];
   return s;
-}
-
-// The count of edges <= w (NaN and negative widths: 0).
-__device__ __forceinline__ int bucket_of(float w, const float* s_edges, int nedges) {
-  if (isnan(w)) w = 0.0f;
-  w = fmaxf(w, 0.0f);
-  int b = 0;
-  // the first 16 edges unrolled, so that their loads go out together
-#pragma unroll
-  for (int e = 0; e < 16; ++e)
-    if (e < nedges) b += w >= s_edges[e] ? 1 : 0;
-  for (int e = 16; e < nedges; ++e) b += w >= s_edges[e] ? 1 : 0;
-  return b;
-}
-
-// Context bucket and clamped prediction of one symbol (torch_ops.contexts):
-// both the LF and the HF forms, then one bucket search on the chosen width
-// (a warp mixes the two kinds, so branches would run both anyway).
-__device__ __forceinline__ void lane_context(const int (&v)[kTaps], bool lf, const float* vp,
-                                             const float* wp, const float* s_edges, int nedges,
-                                             int* bucket, int* pred) {
-  const int mx = max(v[0], v[2]);
-  const int mn = min(v[0], v[2]);
-  const int p_lf = v[1] >= mx ? mx : (v[1] <= mn ? mn : v[0] + v[2] - v[1]);
-  float f[kTaps];
-#pragma unroll
-  for (int k = 0; k < kTaps; ++k) f[k] = static_cast<float>(v[k]);
-  const float g1 = fabsf(__fsub_rn(f[0], f[3]));
-  const float g2 = fabsf(__fsub_rn(f[1], f[2]));
-  const float g3 = fabsf(__fsub_rn(f[4], f[5]));
-  const float g4 = fabsf(__fsub_rn(f[1], f[5]));
-  const float g5 = fabsf(__fsub_rn(f[2], f[4]));
-  float w = __fadd_rn(wp[0], __fmul_rn(wp[1], g1));
-  w = __fadd_rn(w, __fmul_rn(wp[2], g2));
-  w = __fadd_rn(w, __fmul_rn(wp[3], g3));
-  w = __fadd_rn(w, __fmul_rn(wp[4], g4));
-  w = __fadd_rn(w, __fmul_rn(wp[5], g5));
-  const float gsum = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(g1, g2), g3), g4), g5);
-  if (gsum == 0.0f) w = 0.0f;
-  float pf = __fmul_rn(f[0], vp[0]);
-#pragma unroll
-  for (int k = 1; k < kTaps; ++k) pf = __fadd_rn(pf, __fmul_rn(f[k], vp[k]));
-  if (isnan(pf)) pf = 0.0f;
-  pf = fminf(fmaxf(pf, -1e9f), 1e9f);
-  *bucket = bucket_of(lf ? static_cast<float>(abs(v[0] - v[2])) : w, s_edges, nedges);
-  const int p = lf ? p_lf : __float2int_rz(pf);
-  *pred = min(max(p, -kPredClamp), kPredClamp);
 }
 
 // The six taps of channel c from a record (r0, r1): from the plane in

@@ -28,6 +28,7 @@ from .entropy.tables_torch import finalize_contexts_device
 from .ops import lifting as L
 from .ops import rans_torch as RT
 from .ops import step_decode as SD
+from .ops import tp_decode as TD
 
 # name -> (wrapper, plain version, CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -674,3 +675,188 @@ def lift_head_tiles_ms(shape, device, seed: int = 7, images: int = 0) -> dict:
                                  f"disagrees with its plain version ({err})")
         out[tpb] = device_ms(call)
     return out
+
+
+# the tp-sharded decode's step kernels (in place on their lane states, so
+# checked by chaining them over a decode: tp_check) -> (wrapper, plain
+# version, CUDA source, the TPU loop body it replaces)
+TP_KERNELS = {
+    "tp_decode_row": (
+        TD.tp_decode_row,
+        TD.tp_decode_row_plain,
+        "frave_tpu_torch/csrc/rans_tp_decode.cu",
+        "frave_tpu/parallel/sharded.py:926-963 (scanned at :965)",
+    ),
+    "tp_decode_step": (
+        TD.tp_decode_step,
+        TD.tp_decode_step_plain,
+        "frave_tpu_torch/csrc/rans_tp_decode.cu",
+        "frave_tpu/parallel/sharded.py:1203-1280 (scanned at :1282)",
+    ),
+}
+
+
+def tp_row_chain(fn, args, ranks: int):
+    """decode_scan_wave's operands of one image (x0 [C, NL], gptr0, buckets
+    [R, C, NL], active [R, NL], stream [W], tabs) decoded by `fn`
+    (tp_decode_row or its plain version) with the lanes split over `ranks`
+    simulated ranks: each row, every rank's launch, then the counts
+    stacked as the gather would, and a last launch a rank that finishes
+    the last row. Returns (syms [R, C, NL] int32, x' [C, NL], gptr' 0-d,
+    launches a rank)."""
+    x0, gptr0, bkt, act, stream, tabs = args
+    R, C, NL = bkt.shape
+    L_ = NL // ranks
+    dev = x0.device
+    win = [slice(s * L_, (s + 1) * L_) for s in range(ranks)]
+    xs = [x0[:, w].clone() for w in win]
+    need = [torch.zeros((C, L_), dtype=torch.bool, device=dev) for _ in win]
+    gptr = [gptr0.reshape(1).clone() for _ in win]
+    counts = torch.zeros((ranks, C), dtype=torch.int32, device=dev)
+    rtabs = RT._row_tables({k: v[None] for k, v in tabs.items()}) if dev.type == "cpu" else None
+    kw = {"rtabs": rtabs} if fn is TD.tp_decode_row else {}
+    act = act.to(torch.bool)
+    syms = torch.zeros((R, C, NL), dtype=torch.int32, device=dev)
+    for t in range(R + 1):
+        cnts = []
+        for s, w in enumerate(win):
+            b = bkt[t, :, w].contiguous() if t < R else None
+            a = act[t, w].contiguous() if t < R else None
+            sy, c, gptr[s] = fn(xs[s], need[s], gptr[s], counts, s, b, a, stream, tabs, **kw)
+            if t < R:
+                syms[t, :, w] = sy
+            cnts.append(c)
+        counts = torch.stack(cnts)
+    if any(not torch.equal(g, gptr[0]) for g in gptr):
+        raise AssertionError("the ranks disagree on the stream position")
+    return syms, torch.cat(xs, dim=1), gptr[0][0], R + 1
+
+
+def tp_step_chain(fn, ops, ranks: int):
+    """decode_steps' operands of one image (x0 [C, NL], gptr0, steps,
+    vparams, wparams, stream, tabs, n_slots) decoded by `fn`
+    (tp_decode_step or its plain version) with the lanes split over
+    `ranks` simulated ranks, each with its own replicated planes: each
+    non-empty step, every rank's launch, then the (value, need) outputs
+    joined along the lanes as the gather would; a last launch a rank.
+    Returns (plane [C, n_slots] int32, x' [C, NL], gptr' 0-d, launches a
+    rank); raises unless every rank's planes agree."""
+    x0, gptr0, steps, vparams, wparams, stream, tabs, n_slots = ops
+    C, NL = x0.shape
+    L_ = NL // ranks
+    dev = x0.device
+    K = max(steps.num_symbols, 1)
+    xs = [x0[:, s * L_:(s + 1) * L_].clone() for s in range(ranks)]
+    gptr = [gptr0.reshape(1).clone() for _ in range(ranks)]
+    planes = [torch.zeros((C, n_slots), dtype=torch.int32, device=dev) for _ in range(ranks)]
+    splanes = [torch.zeros((C, K), dtype=torch.int32, device=dev) for _ in range(ranks)]
+    rtabs = RT._row_tables({k: v[None] for k, v in tabs.items()}) if dev.type == "cpu" else None
+    kw = {"rtabs": rtabs} if fn is TD.tp_decode_step else {}
+    todo = [t for t, n in enumerate(steps.step_map[:, 2].tolist()) if n > 0] + [-1]
+    gathered, prev = None, -1
+    for t in todo:
+        outs = []
+        for s in range(ranks):
+            o, gptr[s] = fn(xs[s], gptr[s], steps, prev, t, gathered, s * L_, vparams, wparams,
+                            stream, tabs, planes[s], splanes[s], **kw)
+            outs.append(o)
+        if t >= 0:
+            gathered = torch.cat(outs, dim=2).contiguous()
+        prev = t
+    for s in range(1, ranks):
+        if not (torch.equal(planes[s], planes[0]) and torch.equal(gptr[s], gptr[0])):
+            raise AssertionError("the ranks' replicated planes disagree")
+    return planes[0], torch.cat(xs, dim=1), gptr[0][0], len(todo)
+
+
+def tp_problem(name: str, rng, shape, kind: str, device):
+    """The operands tp_check chains over: tp_decode_row decode_scan_wave's
+    (R, C, NL) problem of `kind` (one image); tp_decode_step decode_steps'
+    (h, w, c, mode) one (step_problem)."""
+    if name == "tp_decode_row":
+        return tuple(_to(a, device) for a in decode_problem(rng, *shape, kind))
+    if name == "tp_decode_step":
+        return step_problem(rng, *shape, kind, device)
+    raise KeyError(name)
+
+
+def tp_bytes(name: str, ops, ranks: int, words: int) -> int:
+    """The bytes one launch of a tp kernel must move for one rank, on
+    average over a decode of `words` consumed words: its lane states read
+    and written, the row's buckets, activity and symbols (3T) or the
+    step's gathered [2, C, NL] and its records (DT), the tables read once,
+    its output and its share of the words."""
+    if name == "tp_decode_row":
+        x0, _, bkt, act, _, tabs = ops
+        R, C, NL = bkt.shape
+        lanes = C * NL // ranks
+        per = lanes * (8 * 2 + 2 + 4 + 4) + NL // ranks + ranks * C * 4 + C * 4 + 16
+        return per + _nbytes(tabs) + words * 4 // (R * ranks)
+    x0, _, steps, vparams, wparams, _, tabs, _ = ops
+    C, NL = x0.shape
+    S = max(int((steps.step_map[:, 2] > 0).sum()), 1)
+    per = (C * NL // ranks) * (8 * 2 + 4 * 2) + 2 * C * NL * 4 + _nbytes((vparams, wparams))
+    per += steps.num_symbols * SD.REC_WORDS * 4 // S  # the records of one step
+    return per + _nbytes(tabs) + words * 4 // (S * ranks)
+
+
+def tp_check(name: str, shape, kind: str, device, ranks: int = 2, seed: int = 0,
+             timed: bool = False) -> dict:
+    """A tp kernel chained over a whole decode against its plain version
+    chained the same way (bit-equal: states, position, symbols or plane)
+    and against the one-card plain decode (decode_scan_wave_plain or
+    decode_steps_plain), on `device` tensors; timed: the device ms of one
+    launch (the middle row of the problem, or its widest step, launched
+    back to back on copies of its operands), its byte bound and the plain
+    version's median ms. Returns {"name", "shape", "kind", "ranks",
+    "max_abs_err", "launches" (a rank), "bytes", "bound_ms", "ms",
+    "plain_ms"}."""
+    wrapper, plain, _, _ = TP_KERNELS[name]
+    ops = tp_problem(name, np.random.default_rng(seed), shape, kind, device)
+    chain = tp_row_chain if name == "tp_decode_row" else tp_step_chain
+    got = chain(wrapper, ops, ranks)
+    ref = chain(plain, ops, ranks)
+    err = _max_abs_err(got[:3], ref[:3])
+    one = (RT.decode_scan_wave_plain if name == "tp_decode_row" else SD.decode_steps_plain)(*ops)
+    words = int(ref[2] - ops[1])  # both problems: (x0, gptr0, ...)
+    err_one = _max_abs_err(ref[:3], one)
+    nbytes = tp_bytes(name, ops, ranks, words)
+    out = {"name": name, "shape": list(shape), "kind": kind, "ranks": ranks,
+           "max_abs_err": max(err, err_one), "launches": got[3], "bytes": nbytes,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ms": None, "plain_ms": None}
+    if timed:
+        call, call_plain = _tp_one_launch(name, ops, ranks)
+        out["ms"] = device_ms(call)
+        out["plain_ms"] = median_ms(call_plain, reps=5, warmup=1)
+    return out
+
+
+def _tp_one_launch(name: str, ops, ranks: int):
+    """Closures that launch one step of rank 0 (the kernel, its plain
+    version) on copies of its operands at a representative row or step."""
+    if name == "tp_decode_row":
+        x0, g0, bkt, act, stream, tabs = ops
+        R, C, NL = bkt.shape
+        L_ = NL // ranks
+        t = R // 2
+        x = x0[:, :L_].clone()
+        need = torch.rand((C, L_), device=x.device) < 0.3
+        gptr = g0.reshape(1).clone()
+        counts = need.sum(1, dtype=torch.int32)[None].repeat(ranks, 1)
+        b, a = bkt[t, :, :L_].contiguous(), act[t, :L_].to(torch.bool).contiguous()
+        return (lambda: TD.tp_decode_row(x, need, gptr, counts, 0, b, a, stream, tabs),
+                lambda: TD.tp_decode_row_plain(x, need, gptr, counts, 0, b, a, stream, tabs))
+    x0, g0, steps, vparams, wparams, stream, tabs, n_slots = ops
+    C, NL = x0.shape
+    L_ = NL // ranks
+    lengths = steps.step_map[:, 2]
+    t = int(torch.argmax(lengths))
+    prev = max(t - 1, 0)
+    x = x0[:, :L_].clone()
+    gptr = g0.reshape(1).clone()
+    plane = torch.zeros((C, n_slots), dtype=torch.int32, device=x.device)
+    splane = torch.zeros((C, max(steps.num_symbols, 1)), dtype=torch.int32, device=x.device)
+    gathered = torch.zeros((2, C, NL), dtype=torch.int32, device=x.device)
+    gathered[1] = (torch.rand((C, NL), device=x.device) < 0.3).to(torch.int32)
+    args = (x, gptr, steps, prev, t, gathered, 0, vparams, wparams, stream, tabs, plane, splane)
+    return (lambda: TD.tp_decode_step(*args), lambda: TD.tp_decode_step_plain(*args))

@@ -49,6 +49,7 @@ _SIGNATURES = {
     "frave_fwd_lift_pixels": [_P] * 5 + [_L, _L] + [_I] * 4 + [_P],
     "frave_inv_lift_pixels": [_P, _L, _L] + [_P] * 6 + [_L] + [_I] * 3 + [_P],
     "frave_rans_encode": [_P] * 10 + [_I] * 8 + [_P],
+    "frave_rans_encode_lanes": [_P] * 10 + [_I] * 9 + [_P],
     "frave_rans_encode_plan": [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "frave_rans_decode_wave": [_P] * 11 + [_I] * 7 + [_P],
     "frave_rans_decode_plan": [_I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
@@ -56,6 +57,8 @@ _SIGNATURES = {
     "frave_rans_decode_steps": [_P] * 14 + [_I] * 6 + [_L] * 2 + [_I] * 5 + [_P],
     "frave_rans_decode_steps_plan": [_I] * 7 + [ctypes.POINTER(_I)],
     "frave_step_floor_loop": [_I, _P, _P, _P],
+    "frave_tp_decode_row": [_P] * 12 + [_I] * 6 + [_P],
+    "frave_tp_decode_step": [_P] * 15 + [_I] * 10 + [_L] * 2 + [_P],
 }
 
 _lock = threading.Lock()

@@ -89,20 +89,25 @@ def schedule_grid(a, row_k0, row_len, nl: int):
     return g.movedim(-2, 0).contiguous(), valid
 
 
-def encode_scan_plain(symbols, buckets, row_k0, row_len, freqs, cdfs, scale_bits, nl):
+def encode_scan_plain(symbols, buckets, row_k0, row_len, freqs, cdfs, scale_bits, nl,
+                      lane0: int = 0, lanes: int = 0):
     """encode_scan as a row loop over [B*C, NL] tensors of the lane grid
-    that schedule_grid builds. Returns (states [B, C, NL] int64 in
-    [0, 2^32), words [B, R, C, NL] int16 (u16 bits), flags [B, R, C, NL]
-    bool); one image without its batch axis gives them without it."""
+    that schedule_grid builds (only the window [lane0, lane0 + lanes) of it
+    where `lanes` is given). Returns (states [B, C, NL] int64 in [0, 2^32),
+    words [B, R, C, NL] int16 (u16 bits), flags [B, R, C, NL] bool; NL the
+    window's width); one image without its batch axis gives them without
+    it."""
     if symbols.dim() == 2:
         out = encode_scan_plain(
             symbols[None], buckets[None], row_k0, row_len, freqs[None], cdfs[None],
-            scale_bits[None], nl,
+            scale_bits[None], nl, lane0, lanes,
         )
         return tuple(t[0] for t in out)
     B, C, K = symbols.shape
+    win = slice(lane0, lane0 + (lanes or nl - lane0))
     sym_grid, valid_grid = schedule_grid(symbols.reshape(B * C, K), row_k0, row_len, nl)
     bkt_grid, _ = schedule_grid(buckets.reshape(B * C, K), row_k0, row_len, nl)
+    sym_grid, valid_grid, bkt_grid = sym_grid[..., win], valid_grid[..., win], bkt_grid[..., win]
     R, BC, NL = sym_grid.shape
     ca = freqs.shape[-2]
     dev = sym_grid.device
@@ -157,7 +162,7 @@ def encode_plan(channels: int, lanes: int, contexts: int):
 
 
 def encode_scan(symbols, buckets, row_k0, row_len, freqs, cdfs, scale_bits, nl: int,
-                ahead: int = 0, threads: int = 0):
+                ahead: int = 0, threads: int = 0, lane0: int = 0, lanes: int = 0):
     """Reverse-scan rANS encode (replaces rans_jax.encode_scan) of a
     same-shape batch over the lane grid of a row map, read in schedule
     order.
@@ -178,11 +183,14 @@ def encode_scan(symbols, buckets, row_k0, row_len, freqs, cdfs, scale_bits, nl: 
     sets) on the card, encode_scan_plain on the CPU. `ahead` (rows loaded
     ahead: 4, 8 or 16) and `threads` (lanes a block), given together,
     force the kernel's design point for the sweeps; 0 and 0 take its
-    launch rule (encode_plan)."""
+    launch rule (encode_plan). `lane0` and `lanes` > 0 take only the lanes
+    [lane0, lane0 + lanes) of every row (one rank's window of a tp-sharded
+    encode; kernel C's frave_rans_encode_lanes): the results then hold
+    those lanes alone, NL = lanes."""
     if symbols.dim() == 2:
         out = encode_scan(
             symbols[None], buckets[None], row_k0, row_len, freqs[None], cdfs[None],
-            scale_bits[None], nl, ahead, threads,
+            scale_bits[None], nl, ahead, threads, lane0, lanes,
         )
         return tuple(t[0] for t in out)
     if symbols.dim() != 3:
@@ -200,6 +208,9 @@ def encode_scan(symbols, buckets, row_k0, row_len, freqs, cdfs, scale_bits, nl: 
     _check_grid("scale_bits", scale_bits, (B, C, ca), i32)
     if not 1 <= nl < 1 << 31:
         raise ValueError(f"nl must be positive, got {nl}")
+    width = lanes or nl
+    if lanes < 0 or lane0 < 0 or lane0 + width > nl or (lane0 and not lanes):
+        raise ValueError(f"lane window [{lane0}, {lane0} + {lanes}) is not within {nl} lanes")
     if not 1 <= B * C <= 65535:
         raise ValueError(f"a launch takes 1 to 65535 lane sets (B * C), got {B * C}")
     if (ahead == 0) != (threads == 0):
@@ -207,7 +218,7 @@ def encode_scan(symbols, buckets, row_k0, row_len, freqs, cdfs, scale_bits, nl: 
     dev = symbols.device
     if dev.type == "cpu":
         return encode_scan_plain(
-            symbols, buckets, row_k0, row_len, freqs, cdfs, scale_bits, nl
+            symbols, buckets, row_k0, row_len, freqs, cdfs, scale_bits, nl, lane0, lanes
         )
     if dev.type != "cuda":
         raise RuntimeError(f"no kernel for device {dev}")
@@ -219,15 +230,21 @@ def encode_scan(symbols, buckets, row_k0, row_len, freqs, cdfs, scale_bits, nl: 
     if K == 0:  # the kernel reads position 0 of every padding slot
         symbols = buckets = torch.zeros((B, C, 1), dtype=torch.int32, device=dev)
     lib = _build.load_library()
-    words = torch.empty((B, R, C, nl), dtype=torch.int16, device=dev)
-    flags = torch.empty((B, R, C, nl), dtype=torch.uint8, device=dev)
-    states = torch.empty((B, C, nl), dtype=torch.int64, device=dev)
-    code = lib.frave_rans_encode(
-        symbols.data_ptr(), buckets.data_ptr(), row_k0.data_ptr(), row_len.data_ptr(),
-        freqs.data_ptr(), cdfs.data_ptr(), scale_bits.data_ptr(),
-        words.data_ptr(), flags.data_ptr(), states.data_ptr(),
-        R, C, B, nl, ca, symbols.shape[2], ahead, threads, _build.current_stream(dev),
-    )
+    words = torch.empty((B, R, C, width), dtype=torch.int16, device=dev)
+    flags = torch.empty((B, R, C, width), dtype=torch.uint8, device=dev)
+    states = torch.empty((B, C, width), dtype=torch.int64, device=dev)
+    ptrs = (symbols.data_ptr(), buckets.data_ptr(), row_k0.data_ptr(), row_len.data_ptr(),
+            freqs.data_ptr(), cdfs.data_ptr(), scale_bits.data_ptr(),
+            words.data_ptr(), flags.data_ptr(), states.data_ptr())
+    if lanes:
+        code = lib.frave_rans_encode_lanes(
+            *ptrs, R, C, B, width, ca, symbols.shape[2], lane0, ahead, threads,
+            _build.current_stream(dev),
+        )
+    else:
+        code = lib.frave_rans_encode(
+            *ptrs, R, C, B, nl, ca, symbols.shape[2], ahead, threads, _build.current_stream(dev),
+        )
     _build.check(code, "frave_rans_encode")
     encode_scan.launches += 1
     return states, words, flags.view(torch.bool)
@@ -312,15 +329,11 @@ def _row_tables(tabs):
     }
 
 
-def decode_row(x, gptr, buckets, active, stream, rtabs):
-    """One rANS decode row for all images x channels x lanes
-    (decode_scan_wave's semantics, see there).
-
-    x [B, C, NL] int64 lane states; gptr [B] int64 stream positions;
-    buckets [B, C, NL] context ids (clamped to 0..CA-1); active [NL] bool;
-    stream [B, W] int32 u16 words; rtabs from _row_tables ([B, C, ...]).
-    Returns (sym [B, C, NL] int64, x', gptr')."""
-    decode_row.calls += 1
+def row_symbols(x, buckets, active, rtabs):
+    """The symbol half of a decode row: x [B, C, NL] int64 lane states,
+    buckets [B, C, NL] context ids (clamped to 0..CA-1), active [NL] bool,
+    rtabs from _row_tables ([B, C, ...]) -> (sym [B, C, NL] int64 on every
+    lane, the pre-renorm states x', need = active & (x' < 2^16))."""
     B, C, NL = x.shape
     ca = rtabs["bits"].shape[-1]
     chan = torch.arange(B * C, device=x.device, dtype=torch.int64).reshape(B, C, 1)
@@ -334,12 +347,34 @@ def decode_row(x, gptr, buckets, active, stream, rtabs):
     cd = ext[t]
     fr = torch.minimum(ext[t + 1], top) - cd
     x_new = (fr * (x >> bi) + slot - cd) & _U32
-    need = active & (x_new < RANS_L)
+    return sym, x_new, active & (x_new < RANS_L)
+
+
+def row_renorm(x_new, need, idx, stream):
+    """The renorm half of a decode row: the lanes that need a word (need
+    [B, C, NL]) shift in stream[b, idx] (idx [B, C, NL] int64, clamped to
+    [0, W - 1]); the others keep x_new. Returns the states."""
+    B = x_new.shape[0]
+    idx = torch.clamp(idx, 0, stream.shape[1] - 1).reshape(B, -1)
+    w = torch.gather(stream, 1, idx).to(torch.int64).reshape(x_new.shape)
+    return torch.where(need, ((x_new << WORD_BITS) | w) & _U32, x_new)
+
+
+def decode_row(x, gptr, buckets, active, stream, rtabs):
+    """One rANS decode row for all images x channels x lanes
+    (decode_scan_wave's semantics, see there): row_symbols, then
+    row_renorm with the words ranked channel-major, lane-minor per image.
+
+    x [B, C, NL] int64 lane states; gptr [B] int64 stream positions;
+    buckets [B, C, NL] context ids (clamped to 0..CA-1); active [NL] bool;
+    stream [B, W] int32 u16 words; rtabs from _row_tables ([B, C, ...]).
+    Returns (sym [B, C, NL] int64, x', gptr')."""
+    decode_row.calls += 1
+    B = x.shape[0]
+    sym, x_new, need = row_symbols(x, buckets, active, rtabs)
     nf = need.reshape(B, -1).to(torch.int64)
     pos = torch.cumsum(nf, dim=1) - 1  # channel-major, lane-minor ranks per image
-    idx = torch.clamp(gptr[:, None] + pos, 0, stream.shape[1] - 1)
-    w = torch.gather(stream, 1, idx).to(torch.int64).reshape(B, C, NL)
-    x_new = torch.where(need, ((x_new << WORD_BITS) | w) & _U32, x_new)
+    x_new = row_renorm(x_new, need, (gptr[:, None] + pos).reshape(x.shape), stream)
     x = torch.where(active, x_new, x)
     return sym, x, gptr + nf.sum(dim=1)
 

@@ -164,9 +164,25 @@ def padded_records(steps: StepOperands) -> StepOperands:
     return dataclasses.replace(steps, rec=rec, flags=steps.flags | PADDED)
 
 
+def step_contexts(splane, rec, ks, vparams, wparams):
+    """The contexts of the schedule indices ks [n] int64 of a batch, from
+    its plane in schedule order splane [B, C, K] int32 (a tap -1 reads 0):
+    the six taps, torch_ops.contexts with each symbol's LF flag and
+    predictor row (vparams / wparams [B, C, F, 6]), a fixed bucket >= 0
+    replacing the computed one. rec [K, 8] int64 records. Returns (buckets,
+    predictions) [B, C, n]."""
+    taps = rec[ks, 1:1 + TAPS]
+    vals = torch.where(taps >= 0, splane[:, :, taps.clamp(min=0)], 0)  # [B, C, n, 6]
+    lf, grp, fbkt = unpack_meta(rec[ks, REC_WORDS - 1])
+    bk, pred = T.contexts(vals, lf, grp, vparams, wparams)
+    return torch.where(fbkt >= 0, fbkt.to(bk.dtype), bk), pred
+
+
 def decode_steps_plain(x, gptr, steps, vparams, wparams, stream, tabs, n_slots: int):
-    """decode_steps as a torch loop over the steps (see there). Returns
-    (plane [B, C, n_slots] int32, x', gptr')."""
+    """decode_steps as a torch loop over the steps (see there): per step
+    step_contexts, then rans_torch.decode_row over the step's lanes, then
+    the stores of its values. Returns (plane [B, C, n_slots] int32, x',
+    gptr')."""
     if gptr.dim() == 0:
         plane, x, gptr = decode_steps_plain(
             x[None], gptr[None], steps, vparams[None], wparams[None], stream[None],
@@ -180,11 +196,10 @@ def decode_steps_plain(x, gptr, steps, vparams, wparams, stream, tabs, n_slots: 
     rtabs = RT._row_tables(tabs)
     rec = steps.rec.to(_I64)
     K = rec.shape[0]
-    coef, taps = rec[:, 0], rec[:, 1:1 + TAPS]
-    lf, grp, fbkt = unpack_meta(rec[:, REC_WORDS - 1])
-    # the planes: schedule order (the taps' reads; slot K reads 0) and
-    # coefficient slots (the output)
-    splane = torch.zeros((B, C, K + 1), dtype=_I32, device=dev)
+    coef = rec[:, 0]
+    # the planes: schedule order (the taps' reads) and coefficient slots
+    # (the output)
+    splane = torch.zeros((B, C, max(K, 1)), dtype=_I32, device=dev)
     plane = torch.zeros((B, C, n_slots), dtype=_I32, device=dev)
     lanes = torch.arange(NL, device=dev)
     for k0, lane0, length, _ in steps.step_map.tolist():
@@ -192,10 +207,7 @@ def decode_steps_plain(x, gptr, steps, vparams, wparams, stream, tabs, n_slots: 
             continue
         ks = torch.arange(k0, k0 + length, device=dev)
         n = (lane0 + ks - k0) % NL
-        tk = taps[ks]
-        vals = splane[:, :, torch.where(tk >= 0, tk, K)]  # [B, C, len, 6]
-        bk, pred = T.contexts(vals, lf[ks], grp[ks], vparams, wparams)
-        bk = torch.where(fbkt[ks] >= 0, fbkt[ks].to(bk.dtype), bk)
+        bk, pred = step_contexts(splane, rec, ks, vparams, wparams)
         # onto the lanes: the rank order is channel-major, ascending lane
         bk_lanes = torch.zeros((B, C, NL), dtype=bk.dtype, device=dev)
         bk_lanes[:, :, n] = bk
