@@ -112,11 +112,17 @@ script exits nonzero without printing a result:
                   tp decode's step kernels 3T and DT chained over whole
                   decodes with the lanes split over 2 ranks, bit-equal to
                   their plain versions chained the same way and to the
-                  one-card plain decode (3T on the largest 2048x2048 RGB
-                  wave on valid and garbage streams, DT on e2's parity
-                  program's valid stream and e1's parallel program's
-                  garbage; one launch's device ms beside its byte
-                  bound); g1 a gloo world of 2 ranks on
+                  one-card plain decode, at every design the plan runs
+                  (the launch rule, one block, each cluster size, the
+                  tables by threads and by TMA, one block with the tables
+                  by threads): 3T on the largest 2048x2048 RGB wave
+                  (valid and garbage) and, the rule and one block with
+                  the tables by threads, on 768x512 RGB's and 256x256
+                  gray's; DT on e1's parallel and e2's parity programs
+                  (valid and garbage) and, those two, e3's gray parity
+                  one; each plan printed, one launch's device ms per
+                  design beside its empty launch's and its byte bound;
+                  g1 a gloo world of 2 ranks on
                   the card: the dp 1 x tp 2 encode of the 2048x2048 RGB
                   image (halo rings, tp-summed fits and histogram, kernel
                   C over each rank's lane window) byte-equal to 3c's
@@ -1249,35 +1255,62 @@ G_RANKS = 2  # ranks of g1's gloo world (and g3's), all on the one card
 G_DP = 4  # g1's ShardedDecoder batch: 768x512 RGB images
 G_CORPUS = ((256, 256, 1), 6)  # g3's .npy corpus: image shape, images
 G_TIMEOUT = 600  # seconds a world of path g may take
-# DT's problems in g0: e2's parity program (valid, timed), e1's parallel
-# one (garbage)
-G_STEP_SHAPES = ((512, 768, 3, "parity"), (2048, 2048, 3, "parallel"))
+# g0's problems: 3T on the largest grid wave of each image (2048x2048 RGB,
+# 768x512 RGB, 256x256 gray), DT on e1's parallel, e2's parity and e3's
+# gray parity programs; (kernel, shape, kinds, every design or the rule and
+# one block with the tables by threads alone)
+G_TP_CASES = (
+    ("tp_decode_row", (2048, 2048, 3), ("valid", "garbage"), True),
+    ("tp_decode_row", (512, 768, 3), ("valid",), False),
+    ("tp_decode_row", (256, 256, 1), ("valid",), False),
+    ("tp_decode_step", (2048, 2048, 3, "parallel"), ("valid", "garbage"), True),
+    ("tp_decode_step", (512, 768, 3, "parity"), ("valid", "garbage"), True),
+    ("tp_decode_step", (256, 256, 1, "parity"), ("valid",), False),
+)
+# the shapes of the kernels line (3T on the 2048x2048 RGB wave,
+# DT on e2's program)
+G_LINE = {"tp_decode_row": (2048, 2048, 3), "tp_decode_step": (512, 768, 3, "parity")}
 G_DEVICE, G_NCCL = "cuda", "nccl"  # the worlds' device and g2's backend
 
 
-def g_kernels(dev, big_shapes: dict, checks: dict) -> None:
+def g_kernels(dev, checks: dict) -> None:
     """Kernels 3T and DT chained over whole decodes with the lanes split
     over G_RANKS simulated ranks, against their plain versions chained the
-    same way and against the one-card plain decode, bit-equal: 3T on the
-    largest 2048x2048 RGB grid wave, valid (timed: one launch's device ms)
-    and garbage; DT on the 768x512 RGB parity program (e2's), valid
-    (timed), and on the 2048x2048 RGB parallel one (e1's), garbage (its
-    266 steps chain faster than e2's 2,334 in the plain version)."""
-    wave = big_shapes["wave"]
-    parity, parallel = G_STEP_SHAPES
-    for name, sh, kind, timed in (
-            ("tp_decode_row", wave, "valid", True), ("tp_decode_row", wave, "garbage", False),
-            ("tp_decode_step", parity, "valid", True),
-            ("tp_decode_step", parallel, "garbage", False)):
-        r = kernel_check.tp_check(name, sh, kind, dev, ranks=G_RANKS, timed=timed)
-        times = (f" one launch {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-                 f"{r['bound_ms']:.5f} ms ({r['bytes']} B)" if timed else "")
-        print(f"kernel {name} {tuple(sh)} {kind}: chained over {r['launches']} launches a rank "
-              f"on {G_RANKS} ranks, max_abs_err {r['max_abs_err']} against the chained plain "
-              f"version and the one-card plain decode{times}")
-        if r["max_abs_err"] != 0:
-            raise AssertionError(f"{name} {sh} {kind}: kernel disagrees with its plain version")
-        checks.setdefault(name, []).append(r)
+    same way and against the one-card plain decode, bit-equal, at every
+    case of G_TP_CASES: every design of kernel_check.TP_DESIGNS that the
+    plan runs at the shape (the launch rule, one block, each cluster size,
+    the tables by threads and by TMA, one block with the tables by
+    threads), or the rule and the last; the valid problem timed per
+    design (one launch's device ms and its empty launch's, beside the
+    byte bound)."""
+    for name, sh, kinds, every in G_TP_CASES:
+        shape = kernel_check.grid_shapes(*sh)["wave"] if name == "tp_decode_row" else sh
+        designs = (tuple(kernel_check.TP_DESIGNS) if every
+                   else ("rule", "one block, tables by threads"))
+        for kind in kinds:
+            timed = kind == "valid"
+            r = kernel_check.tp_check(name, shape, kind, dev, ranks=G_RANKS, timed=timed,
+                                      designs=designs)
+            plans = {d: (f"{p.variant} {p.cluster}x{p.per} {'TMA' if p.tma else 'threads'}"
+                         if not isinstance(p, str) else f"refused ({p})")
+                     for d, p in r["plans"].items()}
+            print(f"kernel {name} {tuple(shape)} {kind}: chained over {r['launches']} launches "
+                  f"a rank on {G_RANKS} ranks, max_abs_err {r['max_abs_err']} against the "
+                  f"chained plain version and the one-card plain decode at every design run; "
+                  f"plans {json.dumps(plans)}")
+            if timed:
+                print(f"kernel {name} {tuple(shape)} one launch device ms by design (empty "
+                      f"launch floor): " + json.dumps(
+                          {d: [round(ms, 5), round(r['design_floor_ms'][d], 5)]
+                           for d, ms in r["design_ms"].items()})
+                      + f"; bound {r['bound_ms']:.5f} ms ({r['bytes']} B), plain "
+                      f"{r['plain_ms']:.4f} ms")
+            if r["max_abs_err"] != 0:
+                raise AssertionError(f"{name} {shape} {kind}: kernel disagrees with its plain "
+                                     f"version: {r['errs']}")
+            if timed and sh == G_LINE[name]:
+                r["line"] = True
+            checks.setdefault(name, []).append(r)
 
 
 def g_counts(label: str, legs: list, want: dict) -> dict:
@@ -1328,7 +1361,7 @@ def path_g(dev, big_px, big_blob, e_blobs, oracle, big_shapes, totals, checks) -
     from frave_tpu_torch.parallel.world import launch
 
     t0 = time.perf_counter()
-    g_kernels(dev, big_shapes, checks)
+    g_kernels(dev, checks)
     print(f"phase g kernels took {time.perf_counter() - t0:.1f} s")
     h, w, c = big_px.shape
     e2_px = natural_image(*REF_IMAGES[E_IMAGES[1][1]][:4])
@@ -1353,7 +1386,7 @@ def path_g(dev, big_px, big_blob, e_blobs, oracle, big_shapes, totals, checks) -
                 dp_leg]
         t1 = time.perf_counter()
         res = launch(G_RANKS, "frave_tpu_torch.parallel.dryrun:run_legs",
-                     {"legs": legs, "dp": 1, "tp": G_RANKS, "device": G_DEVICE}, backend="gloo",
+                     {"legs": legs, "dp": 1, "tp": G_RANKS}, backend="gloo",
                      device=G_DEVICE, timeout=G_TIMEOUT)
         g1_s = time.perf_counter() - t1
         per = list(zip(*res))  # per leg: every rank's result
@@ -1406,7 +1439,7 @@ def path_g(dev, big_px, big_blob, e_blobs, oracle, big_shapes, totals, checks) -
         dp_leg["out"] = str(t / "dp_nccl.npy")
         t1 = time.perf_counter()
         res = launch(1, "frave_tpu_torch.parallel.dryrun:run_legs",
-                     {"legs": [enc_leg, dp_leg], "dp": 1, "tp": 1, "device": G_DEVICE},
+                     {"legs": [enc_leg, dp_leg], "dp": 1, "tp": 1},
                      backend=G_NCCL, device=G_DEVICE, timeout=G_TIMEOUT)
         g2_s = time.perf_counter() - t1
         if (t / "enc_nccl" / "0.frv").read_bytes() != big_blob:
@@ -1429,8 +1462,7 @@ def path_g(dev, big_px, big_blob, e_blobs, oracle, big_shapes, totals, checks) -
             px = natural_image(*shape[:2], shape[2], 40 + i)
             np.save(corpus / f"img{i}.npy", px[..., 0] if shape[2] == 1 else px)
             imgs[f"img{i}"] = px
-        kw = {"corpus_dir": str(corpus), "output_dir": str(t / "corpus_out"), "batch_size": 2,
-              "device": G_DEVICE}
+        kw = {"corpus_dir": str(corpus), "output_dir": str(t / "corpus_out"), "batch_size": 2}
         t1 = time.perf_counter()
         first = launch(G_RANKS, "frave_tpu_torch.parallel.multihost:run_corpus", kw,
                        backend="gloo", device=G_DEVICE, timeout=G_TIMEOUT)
@@ -1756,13 +1788,15 @@ def main() -> int:
         kernels.append(entry)
     for name, (_, _, src, replaces) in kernel_check.TP_KERNELS.items():
         rs = checks[name]
-        at = [r for r in rs if r["ms"] is not None][0]
+        at = [r for r in rs if r.get("line")][0]
+        plan = at["plans"]["rule"]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": totals[name],
                         "max_abs_err": max(r["max_abs_err"] for r in rs),
                         "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
                         "bound_by": "bytes", "library_ms": None, "shape": at["shape"],
-                        "ranks": at["ranks"]})
+                        "ranks": at["ranks"], "variant": plan.variant, "cluster": plan.cluster,
+                        "tma": plan.tma, "floor_ms": at["floor_ms"]})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,8 @@
-// Device code shared by the two rANS decode kernels for Hopper (sm_90a):
-// the whole-wave decode of grid mode (rans_decode.cu, kernel 3) and the
-// step-tensor decode of every mode (rans_step_decode.cu, kernel D).
+// Device code shared by the rANS decode kernels for Hopper (sm_90a): the
+// whole-wave decode of grid mode (rans_decode.cu, kernel 3), the
+// step-tensor decode of every mode (rans_step_decode.cu, kernel D) and the
+// tp-sharded decode steps (rans_tp_decode.cu, kernels 3T and DT; D and
+// DT take the TMA bulk copies below, 3T and DT the split cluster barrier).
 //
 // Both run one thread-block cluster of S blocks of kThreads threads per
 // image, block k owning a contiguous range of the flat rank index
@@ -133,6 +135,57 @@ __device__ __forceinline__ void take_words(const int32_t* stream, int64_t len, i
 __device__ __forceinline__ void cluster_barrier_release_acquire() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// Arrive on `bar` expecting `bytes` more of bulk copies before its phase
+// completes.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// TMA's 1-D form: `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The two halves of a cluster barrier, for a thread that arrives early and
+// waits late: every write a thread of the cluster made before its arrive
+// is visible to every thread of the cluster after its wait. Each thread
+// waits once between two arrives.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // The row's cross-block exchange: every block's total `btot` in, this

@@ -696,14 +696,27 @@ TP_KERNELS = {
 }
 
 
-def tp_row_chain(fn, args, ranks: int):
+def _tp_kw(fn, wrapper, tabs, dev, design) -> dict:
+    """The keywords a chain passes `fn`: the wrapper's slot tables on the
+    CPU, or its table image (once a chain) and design (cluster, flags) on
+    the card; nothing to a plain version."""
+    if fn is not wrapper:
+        return {}
+    if dev.type == "cpu":
+        return {"rtabs": RT._row_tables({k: v[None] for k, v in tabs.items()})}
+    cluster, flags = design or (0, 0)
+    return {"image": TD.table_image(tabs), "cluster": cluster, "flags": flags}
+
+
+def tp_row_chain(fn, args, ranks: int, design=None):
     """decode_scan_wave's operands of one image (x0 [C, NL], gptr0, buckets
     [R, C, NL], active [R, NL], stream [W], tabs) decoded by `fn`
     (tp_decode_row or its plain version) with the lanes split over `ranks`
     simulated ranks: each row, every rank's launch, then the counts
     stacked as the gather would, and a last launch a rank that finishes
-    the last row. Returns (syms [R, C, NL] int32, x' [C, NL], gptr' 0-d,
-    launches a rank)."""
+    the last row; the wrapper at `design` (cluster, flags; None: the
+    rule). Returns (syms [R, C, NL] int32, x' [C, NL], gptr' 0-d, launches
+    a rank)."""
     x0, gptr0, bkt, act, stream, tabs = args
     R, C, NL = bkt.shape
     L_ = NL // ranks
@@ -713,8 +726,7 @@ def tp_row_chain(fn, args, ranks: int):
     need = [torch.zeros((C, L_), dtype=torch.bool, device=dev) for _ in win]
     gptr = [gptr0.reshape(1).clone() for _ in win]
     counts = torch.zeros((ranks, C), dtype=torch.int32, device=dev)
-    rtabs = RT._row_tables({k: v[None] for k, v in tabs.items()}) if dev.type == "cpu" else None
-    kw = {"rtabs": rtabs} if fn is TD.tp_decode_row else {}
+    kw = _tp_kw(fn, TD.tp_decode_row, tabs, dev, design)
     act = act.to(torch.bool)
     syms = torch.zeros((R, C, NL), dtype=torch.int32, device=dev)
     for t in range(R + 1):
@@ -732,15 +744,16 @@ def tp_row_chain(fn, args, ranks: int):
     return syms, torch.cat(xs, dim=1), gptr[0][0], R + 1
 
 
-def tp_step_chain(fn, ops, ranks: int):
+def tp_step_chain(fn, ops, ranks: int, design=None):
     """decode_steps' operands of one image (x0 [C, NL], gptr0, steps,
     vparams, wparams, stream, tabs, n_slots) decoded by `fn`
     (tp_decode_step or its plain version) with the lanes split over
     `ranks` simulated ranks, each with its own replicated planes: each
     non-empty step, every rank's launch, then the (value, need) outputs
-    joined along the lanes as the gather would; a last launch a rank.
-    Returns (plane [C, n_slots] int32, x' [C, NL], gptr' 0-d, launches a
-    rank); raises unless every rank's planes agree."""
+    joined along the lanes as the gather would; a last launch a rank; the
+    wrapper at `design` (cluster, flags; None: the rule). Returns (plane
+    [C, n_slots] int32, x' [C, NL], gptr' 0-d, launches a rank); raises
+    unless every rank's planes agree."""
     x0, gptr0, steps, vparams, wparams, stream, tabs, n_slots = ops
     C, NL = x0.shape
     L_ = NL // ranks
@@ -750,8 +763,7 @@ def tp_step_chain(fn, ops, ranks: int):
     gptr = [gptr0.reshape(1).clone() for _ in range(ranks)]
     planes = [torch.zeros((C, n_slots), dtype=torch.int32, device=dev) for _ in range(ranks)]
     splanes = [torch.zeros((C, K), dtype=torch.int32, device=dev) for _ in range(ranks)]
-    rtabs = RT._row_tables({k: v[None] for k, v in tabs.items()}) if dev.type == "cpu" else None
-    kw = {"rtabs": rtabs} if fn is TD.tp_decode_step else {}
+    kw = _tp_kw(fn, TD.tp_decode_step, tabs, dev, design)
     todo = [t for t, n in enumerate(steps.step_map[:, 2].tolist()) if n > 0] + [-1]
     gathered, prev = None, -1
     for t in todo:
@@ -784,56 +796,118 @@ def tp_bytes(name: str, ops, ranks: int, words: int) -> int:
     """The bytes one launch of a tp kernel must move for one rank, on
     average over a decode of `words` consumed words: its lane states read
     and written, the row's buckets, activity and symbols (3T) or the
-    step's gathered [2, C, NL] and its records (DT), the tables read once,
+    step's gathered [2, C, NL] and its records (DT), the table image it
+    reads (tp_decode.table_image: C channels of image_bytes(CA)) once,
     its output and its share of the words."""
     if name == "tp_decode_row":
         x0, _, bkt, act, _, tabs = ops
         R, C, NL = bkt.shape
         lanes = C * NL // ranks
         per = lanes * (8 * 2 + 2 + 4 + 4) + NL // ranks + ranks * C * 4 + C * 4 + 16
-        return per + _nbytes(tabs) + words * 4 // (R * ranks)
+        return per + C * TD.image_bytes(tabs["bits"].shape[-1]) + words * 4 // (R * ranks)
     x0, _, steps, vparams, wparams, _, tabs, _ = ops
     C, NL = x0.shape
     S = max(int((steps.step_map[:, 2] > 0).sum()), 1)
     per = (C * NL // ranks) * (8 * 2 + 4 * 2) + 2 * C * NL * 4 + _nbytes((vparams, wparams))
     per += steps.num_symbols * SD.REC_WORDS * 4 // S  # the records of one step
-    return per + _nbytes(tabs) + words * 4 // (S * ranks)
+    return per + C * TD.image_bytes(tabs["bits"].shape[-1]) + words * 4 // (S * ranks)
+
+
+# the tp kernels' designs: name -> (cluster, flags); each forces a size or
+# the tables' copy of the launch rule's design; the last is the first
+# kernels' launch shape (one block, a channel's for 3T, the tables copied
+# by the threads)
+TP_DESIGNS = {
+    "rule": (0, 0),
+    "one block forced": (0, TD.FORCE_BLOCK),
+    **{f"cluster {s} forced": (s, 0) for s in CLUSTERS[1:]},
+    "tables by threads": (0, TD.NO_TMA),
+    "tables by TMA": (0, TD.TMA),
+    "one block, tables by threads": (0, TD.FORCE_BLOCK | TD.NO_TMA),
+}
+
+
+def tp_design_plan(name: str, ops, ranks: int, design):
+    """The TPPlan the design (cluster, flags) takes on these operands on
+    the card, or the reason the plan refuses it (a str)."""
+    C, NL = ops[0].shape
+    ca = ops[-1]["bits"].shape[-1] if name == "tp_decode_row" else ops[6]["bits"].shape[-1]
+    kind = "row" if name == "tp_decode_row" else "step"
+    try:
+        return TD.tp_plan(kind, C, NL // ranks, ca, *design, device=ops[0].device)
+    except (ValueError, RuntimeError) as e:
+        return str(e)
 
 
 def tp_check(name: str, shape, kind: str, device, ranks: int = 2, seed: int = 0,
-             timed: bool = False) -> dict:
+             timed: bool = False, cluster: int = 0, flags: int = 0, designs=None) -> dict:
     """A tp kernel chained over a whole decode against its plain version
     chained the same way (bit-equal: states, position, symbols or plane)
     and against the one-card plain decode (decode_scan_wave_plain or
-    decode_steps_plain), on `device` tensors; timed: the device ms of one
-    launch (the middle row of the problem, or its widest step, launched
-    back to back on copies of its operands), its byte bound and the plain
-    version's median ms. Returns {"name", "shape", "kind", "ranks",
-    "max_abs_err", "launches" (a rank), "bytes", "bound_ms", "ms",
+    decode_steps_plain), on `device` tensors, at each design of `designs`
+    (names of TP_DESIGNS; default: the one design (cluster, flags), the
+    launch rule unless forced; on the card only); a design the plan
+    refuses at this shape is skipped and its reason kept. timed: per
+    design the device ms of one launch (the middle row of the problem, or
+    its widest step, launched back to back on copies of its operands) and
+    of an empty launch of its grid, cluster and shared memory (the floor),
+    the byte bound and the plain version's median ms. Returns {"name",
+    "shape", "kind", "ranks", "max_abs_err" (the largest over the designs
+    run), "errs" {design: err}, "plans" {design: TPPlan or the refusal},
+    "launches" (a rank), "bytes", "bound_ms", "ms" and "floor_ms" (the
+    first design's), "design_ms" and "design_floor_ms" {design: ms},
     "plain_ms"}."""
     wrapper, plain, _, _ = TP_KERNELS[name]
     ops = tp_problem(name, np.random.default_rng(seed), shape, kind, device)
     chain = tp_row_chain if name == "tp_decode_row" else tp_step_chain
-    got = chain(wrapper, ops, ranks)
+    table = {"rule": (cluster, flags)} if designs is None else {d: TP_DESIGNS[d] for d in designs}
+    if device.type == "cpu" and any(d != (0, 0) for d in table.values()):
+        raise ValueError("the designs are the kernels'; the CPU runs the plain versions")
     ref = chain(plain, ops, ranks)
-    err = _max_abs_err(got[:3], ref[:3])
     one = (RT.decode_scan_wave_plain if name == "tp_decode_row" else SD.decode_steps_plain)(*ops)
-    words = int(ref[2] - ops[1])  # both problems: (x0, gptr0, ...)
     err_one = _max_abs_err(ref[:3], one)
+    errs, plans, launches = {}, {}, None
+    for d, design in table.items():
+        plans[d] = tp_design_plan(name, ops, ranks, design) if device.type == "cuda" else None
+        if isinstance(plans[d], str):
+            continue
+        got = chain(wrapper, ops, ranks, design)
+        errs[d] = max(_max_abs_err(got[:3], ref[:3]), err_one)
+        launches = got[3]
+    words = int(ref[2] - ops[1])  # both problems: (x0, gptr0, ...)
     nbytes = tp_bytes(name, ops, ranks, words)
     out = {"name": name, "shape": list(shape), "kind": kind, "ranks": ranks,
-           "max_abs_err": max(err, err_one), "launches": got[3], "bytes": nbytes,
-           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ms": None, "plain_ms": None}
+           "max_abs_err": max(errs.values()), "errs": errs, "plans": plans,
+           "launches": launches, "bytes": nbytes,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ms": None, "floor_ms": None,
+           "design_ms": {}, "design_floor_ms": {}, "plain_ms": None}
     if timed:
-        call, call_plain = _tp_one_launch(name, ops, ranks)
-        out["ms"] = device_ms(call)
+        for d in errs:
+            call, call_plain = _tp_one_launch(name, ops, ranks, table[d])
+            out["design_ms"][d] = device_ms(call)
+            out["design_floor_ms"][d] = tp_floor_ms(name, ops, ranks, table[d])
+        first = next(iter(errs))
+        out["ms"], out["floor_ms"] = out["design_ms"][first], out["design_floor_ms"][first]
         out["plain_ms"] = median_ms(call_plain, reps=5, warmup=1)
     return out
 
 
-def _tp_one_launch(name: str, ops, ranks: int):
-    """Closures that launch one step of rank 0 (the kernel, its plain
-    version) on copies of its operands at a representative row or step."""
+def tp_floor_ms(name: str, ops, ranks: int, design=(0, 0)) -> float:
+    """Device ms of an empty launch of the grid, cluster and dynamic shared
+    memory that the design (cluster, flags) takes on these operands
+    (tp_decode.launch_floor)."""
+    C, NL = ops[0].shape
+    kind = "row" if name == "tp_decode_row" else "step"
+    ca = (ops[-1] if kind == "row" else ops[6])["bits"].shape[-1]
+    dev = ops[0].device
+    return device_ms(lambda: TD.launch_floor(kind, C, NL // ranks, ca, dev, *design))
+
+
+def _tp_one_launch(name: str, ops, ranks: int, design=(0, 0)):
+    """Closures that launch one step of rank 0 (the kernel at `design`,
+    its table image made once; its plain version) on copies of its
+    operands at a representative row or step."""
+    cluster, flags = design
     if name == "tp_decode_row":
         x0, g0, bkt, act, stream, tabs = ops
         R, C, NL = bkt.shape
@@ -844,7 +918,9 @@ def _tp_one_launch(name: str, ops, ranks: int):
         gptr = g0.reshape(1).clone()
         counts = need.sum(1, dtype=torch.int32)[None].repeat(ranks, 1)
         b, a = bkt[t, :, :L_].contiguous(), act[t, :L_].to(torch.bool).contiguous()
-        return (lambda: TD.tp_decode_row(x, need, gptr, counts, 0, b, a, stream, tabs),
+        image = TD.table_image(tabs)
+        return (lambda: TD.tp_decode_row(x, need, gptr, counts, 0, b, a, stream, tabs,
+                                         image=image, cluster=cluster, flags=flags),
                 lambda: TD.tp_decode_row_plain(x, need, gptr, counts, 0, b, a, stream, tabs))
     x0, g0, steps, vparams, wparams, stream, tabs, n_slots = ops
     C, NL = x0.shape
@@ -859,4 +935,6 @@ def _tp_one_launch(name: str, ops, ranks: int):
     gathered = torch.zeros((2, C, NL), dtype=torch.int32, device=x.device)
     gathered[1] = (torch.rand((C, NL), device=x.device) < 0.3).to(torch.int32)
     args = (x, gptr, steps, prev, t, gathered, 0, vparams, wparams, stream, tabs, plane, splane)
-    return (lambda: TD.tp_decode_step(*args), lambda: TD.tp_decode_step_plain(*args))
+    image = TD.table_image(tabs)
+    return (lambda: TD.tp_decode_step(*args, image=image, cluster=cluster, flags=flags),
+            lambda: TD.tp_decode_step_plain(*args))

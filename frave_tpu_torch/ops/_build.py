@@ -57,8 +57,10 @@ _SIGNATURES = {
     "frave_rans_decode_steps": [_P] * 14 + [_I] * 6 + [_L] * 2 + [_I] * 5 + [_P],
     "frave_rans_decode_steps_plan": [_I] * 7 + [ctypes.POINTER(_I)],
     "frave_step_floor_loop": [_I, _P, _P, _P],
-    "frave_tp_decode_row": [_P] * 12 + [_I] * 6 + [_P],
-    "frave_tp_decode_step": [_P] * 15 + [_I] * 10 + [_L] * 2 + [_P],
+    "frave_tp_decode_row": [_P] * 11 + [_I] * 9 + [_P],
+    "frave_tp_decode_step": [_P] * 14 + [_I] * 10 + [_L] * 2 + [_I] * 3 + [_P],
+    "frave_tp_fits": [_I, _I, _I, _L, ctypes.POINTER(_I)],
+    "frave_tp_empty": [_I, _I, _L, _P],
 }
 
 _lock = threading.Lock()

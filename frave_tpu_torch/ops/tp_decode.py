@@ -21,6 +21,15 @@ gathered:
     lanes (kernel D's taps and f32 context chain); its [2, C, NLl] is the
     next gather.
 
+On the card each launch is one block or one thread-block cluster (3T: one
+a channel) by the host's plan (tp_plan: one block up to 1024 of the rank's
+(channel, lane) pairs, else up to 16 blocks of at most 1024 (3T) or 512
+(DT) pairs), and copies its tables from an image built once a decode
+(table_image: the padded u16 layout the search reads) into shared memory,
+by TMA bulk copies or, in a cluster of 16 blocks where that measured
+faster, by the block's threads. The design switches (FORCE_BLOCK, NO_TMA, TMA) and a
+forced `cluster` serve the checks and sweeps only.
+
 Their plain versions, tp_decode_row_plain and tp_decode_step_plain, are
 the per-step halves of rans_torch.decode_row (row_symbols, row_renorm) and
 of step_decode.decode_steps_plain (step_contexts): chained over the rows
@@ -31,6 +40,10 @@ without a row or step only finishes the last.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -44,6 +57,185 @@ _I64 = torch.int64
 
 
 _check = RT._check_grid
+
+# design switches of kernels 3T and DT (the sweeps; the plain versions take
+# none)
+FORCE_BLOCK = 1  # one block (3T: one a channel)
+NO_TMA = 2  # the tables copied from the image by the block's threads
+TMA = 4  # the tables copied by TMA bulk copies
+KINDS = ("row", "step")
+# the launch rule (PERF.md: the sweep on an H100): one block where the
+# pairs are at most ONE_BLOCK_PAIRS, one a thread; else a cluster of blocks
+# of at most CLUSTER_PAIRS[kind] pairs (DT's carry the taps and the context
+# chain, so it spreads them thinner)
+ONE_BLOCK_PAIRS = 1024
+CLUSTER_PAIRS = {"row": 1024, "step": 512}
+MAX_CLUSTER = 16
+# the tables' copy (PERF.md: the sweep on an H100): TMA bulk copies in a
+# cluster of at most this many blocks; in a larger one (16, the
+# non-portable size) the blocks' threads copy them faster, at every shape
+TMA_MAX_CLUSTER = 8
+MAX_CHANNELS = 4  # DT's
+MAX_PER = 4  # pairs a thread
+THREADS = 1024
+# the shared-memory layout of a cdf staircase (csrc/rans_common.cuh): 32
+# windows of 32 u16 entries, each window padded to 34 slots, each row to
+# 32 * 34 + 2
+_WIN, _WIN_STRIDE = 32, 34
+ROW_STRIDE = RT.ALPHABET_SIZE // _WIN * _WIN_STRIDE + 2
+MAX_BITS = 14
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def image_bytes(contexts: int) -> int:
+    """Bytes of one channel's table image (csrc table_bytes): the bits
+    [CA] u32, then the padded staircases [CA * ROW_STRIDE] u16, each part
+    16-byte aligned."""
+    return _align16(contexts * 4) + _align16(contexts * ROW_STRIDE * 2)
+
+
+def cdf_slots() -> torch.Tensor:
+    """[1024] int64: the u16 slot of each staircase entry in its padded row
+    (csrc cdf_slot)."""
+    e = torch.arange(RT.ALPHABET_SIZE)
+    return (e // _WIN) * _WIN_STRIDE + e % _WIN
+
+
+def table_image(tabs) -> torch.Tensor:
+    """The tables of rans_torch.decode_tables ([C, ...]) as the image that
+    kernels 3T and DT copy into shared memory: [C, image_bytes(CA)] uint8
+    on their device, channel c's bits (clamped to 14) then its staircases
+    (clamped to 2^14) at cdf_slots() of rows ROW_STRIDE apart, the padding
+    0. Built once a decode."""
+    cdf, bits = tabs["cdf"], tabs["bits"]
+    C, CA = bits.shape
+    dev = cdf.device
+    head = _align16(CA * 4)
+    b = torch.zeros((C, head // 4), dtype=_I32, device=dev)
+    b[:, :CA] = bits.clamp(0, MAX_BITS)
+    rows = torch.zeros((C, (image_bytes(CA) - head) // 2), dtype=torch.int16, device=dev)
+    idx = (torch.arange(CA)[:, None] * ROW_STRIDE + cdf_slots()[None]).reshape(-1).to(dev)
+    rows[:, idx] = cdf.clamp(0, 1 << MAX_BITS).to(torch.int16).reshape(C, -1)
+    return torch.cat([b.view(torch.uint8), rows.view(torch.uint8)], dim=1).contiguous()
+
+
+class TPPlan(NamedTuple):
+    """A launch of kernel 3T or DT: the variant ("block" or "cluster"),
+    the blocks of the cluster (3T: of each channel's), the pairs a thread
+    and whether TMA copies the tables (else the block's threads)."""
+
+    variant: str
+    cluster: int
+    per: int
+    tma: bool = True
+
+
+def plan_rule(kind: str, channels: int, local: int, cluster: int = 0, flags: int = 0) -> TPPlan:
+    """The launch rule of kernel 3T (kind "row": a channel's `local` lanes)
+    or DT ("step": the rank's channels x local pairs), by shape alone:
+    one block where the pairs are at most ONE_BLOCK_PAIRS, else the
+    smallest power-of-two cluster with at most CLUSTER_PAIRS[kind] a
+    block, at most MAX_CLUSTER; then the fewest pairs a thread (1, 2 or 4)
+    that cover a block's; the tables by TMA in a cluster of at most
+    TMA_MAX_CLUSTER blocks, else by the threads. `cluster` forces the
+    size, FORCE_BLOCK one block, NO_TMA and TMA the copy. Raises where a
+    block would need more than MAX_PER pairs a thread (and, DT, past
+    MAX_CHANNELS channels)."""
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    if kind == "step" and channels > MAX_CHANNELS:
+        raise ValueError(f"kernel DT takes at most {MAX_CHANNELS} channels, got {channels}")
+    if flags & NO_TMA and flags & TMA:
+        raise ValueError("NO_TMA and TMA exclude each other")
+    pairs = local if kind == "row" else channels * local
+    if flags & FORCE_BLOCK:
+        if cluster not in (0, 1):
+            raise ValueError("FORCE_BLOCK and a cluster size exclude each other")
+        s = 1
+    elif cluster:
+        if not (1 <= cluster <= MAX_CLUSTER and cluster & (cluster - 1) == 0):
+            raise ValueError(f"cluster must be a power of two up to {MAX_CLUSTER}, got {cluster}")
+        s = cluster
+    elif pairs <= ONE_BLOCK_PAIRS:
+        s = 1
+    else:
+        s = 2
+        while s < MAX_CLUSTER and -(-pairs // s) > CLUSTER_PAIRS[kind]:
+            s *= 2
+    chunk = -(-pairs // s)
+    per = next((p for p in (1, 2, MAX_PER) if chunk <= p * THREADS), 0)
+    if not per:
+        raise ValueError(f"{pairs} pairs over {s} blocks need more than {MAX_PER} a thread")
+    tma = bool(flags & TMA) or (not flags & NO_TMA and s <= TMA_MAX_CLUSTER)
+    return TPPlan("block" if s == 1 else "cluster", s, per, tma)
+
+
+def _dyn(kind: str, channels: int, contexts: int) -> int:
+    """The launch's dynamic shared memory: the staged tables."""
+    return image_bytes(contexts) * (1 if kind == "row" else channels)
+
+
+@functools.lru_cache(maxsize=None)
+def _planned(kind, channels, local, contexts, cluster, flags, device_index):
+    plan = plan_rule(kind, channels, local, cluster, flags)
+    if plan.variant != "cluster":
+        return plan
+    lib = _build.load_library()
+    fits = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        while True:
+            code = lib.frave_tp_fits(KINDS.index(kind), plan.per, plan.cluster,
+                                     _dyn(kind, channels, contexts), ctypes.byref(fits))
+            _build.check(code, "frave_tp_fits")
+            if fits.value:
+                return plan
+            if cluster or plan.cluster == 1:
+                raise RuntimeError(f"a cluster of {plan.cluster} blocks of kernel "
+                                   f"{'3T' if kind == 'row' else 'DT'} cannot be resident")
+            plan = plan_rule(kind, channels, local, plan.cluster // 2, flags)
+
+
+def tp_plan(kind: str, channels: int, local: int, contexts: int, cluster: int = 0,
+            flags: int = 0, device=None) -> TPPlan:
+    """plan_rule on the CUDA `device` (the current one by default), the
+    rule's cluster halved (the copy chosen again) while its blocks cannot
+    be resident at once
+    (cudaOccupancyMaxActiveClusters); a forced size that cannot be
+    resident raises. Cached by shape."""
+    dev = torch.device(device) if device is not None else torch.device(
+        "cuda", torch.cuda.current_device())
+    return _planned(kind, channels, local, contexts, cluster, flags, dev.index or 0)
+
+
+def launch_floor(kind: str, channels: int, local: int, contexts: int, device,
+                 cluster: int = 0, flags: int = 0) -> TPPlan:
+    """One empty launch of the grid, cluster and dynamic shared memory of
+    tp_plan's launch (the floor of a launch-per-step design; timed by
+    kernel_check). Not a kernel of the decode: no launch count."""
+    plan = tp_plan(kind, channels, local, contexts, cluster, flags, device)
+    ys = channels if kind == "row" else 1
+    lib = _build.load_library()
+    code = lib.frave_tp_empty(plan.cluster, ys, _dyn(kind, channels, contexts),
+                              _build.current_stream(device))
+    _build.check(code, "frave_tp_empty")
+    return plan
+
+
+def _kernel_flags(plan: TPPlan, flags: int) -> int:
+    """The kernels' switches for a plan (csrc kForceBlock, kNoTma)."""
+    return (flags & FORCE_BLOCK) | (0 if plan.tma else NO_TMA)
+
+
+def _image(image, tabs, C, ca, dev):
+    if image is None:
+        return table_image(tabs)
+    _check("image", image, (C, image_bytes(ca)), (torch.uint8,))
+    if image.device != dev:
+        raise ValueError(f"the table image must lie on {dev}")
+    return image
 
 
 def tp_decode_row_plain(x, need, gptr, counts, rank, buckets, active, stream, tabs,
@@ -69,7 +261,8 @@ def tp_decode_row_plain(x, need, gptr, counts, rank, buckets, active, stream, ta
     return sym[0].to(_I32), nd[0].sum(dim=1, dtype=_I32), gptr_out
 
 
-def tp_decode_row(x, need, gptr, counts, rank, buckets, active, stream, tabs, rtabs=None):
+def tp_decode_row(x, need, gptr, counts, rank, buckets, active, stream, tabs, rtabs=None,
+                  image=None, cluster: int = 0, flags: int = 0):
     """One decode row of a rank's lanes (kernel 3T on the card, its plain
     version on the CPU).
 
@@ -84,9 +277,12 @@ def tp_decode_row(x, need, gptr, counts, rank, buckets, active, stream, tabs, rt
     counts of every rank in the channels before, then of the ranks before
     this one in the channel, then the lane's rank within this rank's
     flagged lanes; then every lane's symbol of row t and, where active,
-    its pre-renorm state, need = active & (x' < 2^16). Returns (syms
-    [C, NLl] int32 (None without a row), counts [C] int32 of need, gptr
-    after row t-1's words [1])."""
+    its pre-renorm state, need = active & (x' < 2^16). On the card: image
+    the table_image of tabs (made here where not given: pass it once a
+    decode), `cluster` and `flags` the design (tp_plan; 0 but in checks
+    and sweeps); rtabs the CPU's. Returns (syms [C, NLl] int32 (None
+    without a row), counts [C] int32 of need, gptr after row t-1's words
+    [1])."""
     C, NLl = x.shape
     n = counts.shape[0]
     ca = tabs["bits"].shape[-1]
@@ -105,21 +301,25 @@ def tp_decode_row(x, need, gptr, counts, rank, buckets, active, stream, tabs, rt
     _check("bits", tabs["bits"], (C, ca), (_I32,))
     dev = x.device
     if dev.type == "cpu":
+        if cluster or flags:
+            raise ValueError("cluster and flags choose kernel 3T's design; the CPU has none")
         return tp_decode_row_plain(x, need, gptr, counts, rank, buckets, active, stream, tabs,
                                    rtabs)
     if dev.type != "cuda":
         raise RuntimeError(f"no kernel for device {dev}")
     lib = _build.load_library()
+    plan = tp_plan("row", C, NLl, ca, cluster, flags, dev)
+    image = _image(image, tabs, C, ca, dev)
     g_out = torch.empty_like(gptr)
     syms = torch.empty((C, NLl), dtype=_I32, device=dev) if buckets is not None else None
     cnt = torch.empty((C,), dtype=_I32, device=dev)
     code = lib.frave_tp_decode_row(
         x.data_ptr(), need.data_ptr(), gptr.data_ptr(), g_out.data_ptr(), counts.data_ptr(),
         None if buckets is None else buckets.data_ptr(),
-        None if buckets is None else active.data_ptr(), stream.data_ptr(),
-        tabs["cdf"].data_ptr(), tabs["bits"].data_ptr(),
+        None if buckets is None else active.data_ptr(), stream.data_ptr(), image.data_ptr(),
         None if syms is None else syms.data_ptr(), cnt.data_ptr(),
-        C, NLl, ca, stream.shape[0], rank, n, _build.current_stream(dev),
+        C, NLl, ca, stream.shape[0], rank, n, plan.cluster, plan.per, _kernel_flags(plan, flags),
+        _build.current_stream(dev),
     )
     _build.check(code, "frave_tp_decode_row")
     tp_decode_row.launches += 1
@@ -169,7 +369,8 @@ def tp_decode_step_plain(x, gptr, steps, prev, step, gathered, lane_lo, vparams,
 
 
 def tp_decode_step(x, gptr, steps, prev, step, gathered, lane_lo, vparams, wparams, stream,
-                   tabs, plane, splane, rtabs=None):
+                   tabs, plane, splane, rtabs=None, image=None, cluster: int = 0,
+                   flags: int = 0):
     """One step of a rank's lanes (kernel DT on the card, its plain version
     on the CPU).
 
@@ -185,8 +386,9 @@ def tp_decode_step(x, gptr, steps, prev, step, gathered, lane_lo, vparams, wpara
     the step to decode on this rank's lanes (-1: none): kernel D's taps,
     contexts, fixed bucket and symbol (vparams / wparams [C, F, 6] f32,
     stream [W] int32, tabs from rans_torch.decode_tables [C, ...]).
-    Returns (out [2, C, NLl] int32, each lane's value and need flag, 0 off
-    the step (None without a step), gptr after step prev's words [1])."""
+    image, cluster and flags as tp_decode_row's. Returns (out [2, C, NLl]
+    int32, each lane's value and need flag, 0 off the step (None without a
+    step), gptr after step prev's words [1])."""
     C, NLl = x.shape
     NL, S, K = steps.lanes, steps.step_map.shape[0], steps.num_symbols
     ca = tabs["bits"].shape[-1]
@@ -212,11 +414,15 @@ def tp_decode_step(x, gptr, steps, prev, step, gathered, lane_lo, vparams, wpara
     _check("bits", tabs["bits"], (C, ca), (_I32,))
     dev = x.device
     if dev.type == "cpu":
+        if cluster or flags:
+            raise ValueError("cluster and flags choose kernel DT's design; the CPU has none")
         return tp_decode_step_plain(x, gptr, steps, prev, step, gathered, lane_lo, vparams,
                                     wparams, stream, tabs, plane, splane, rtabs)
     if dev.type != "cuda":
         raise RuntimeError(f"no kernel for device {dev}")
     lib = _build.load_library()
+    plan = tp_plan("step", C, NLl, ca, cluster, flags, dev)
+    image = _image(image, tabs, C, ca, dev)
     edges = T._bucket_edges(dev)
     if edges.shape[0] != ca - 1:
         raise ValueError(f"{ca} contexts need {ca - 1} bucket edges, not {edges.shape[0]}")
@@ -225,10 +431,11 @@ def tp_decode_step(x, gptr, steps, prev, step, gathered, lane_lo, vparams, wpara
     code = lib.frave_tp_decode_step(
         x.data_ptr(), gptr.data_ptr(), g_out.data_ptr(), steps.step_map.data_ptr(),
         steps.rec.data_ptr(), vparams.data_ptr(), wparams.data_ptr(), edges.data_ptr(),
-        stream.data_ptr(), tabs["cdf"].data_ptr(), tabs["bits"].data_ptr(), plane.data_ptr(),
-        splane.data_ptr(), None if gathered is None else gathered.data_ptr(),
+        stream.data_ptr(), image.data_ptr(), plane.data_ptr(), splane.data_ptr(),
+        None if gathered is None else gathered.data_ptr(),
         None if out is None else out.data_ptr(), prev, step, S, C, NL, lane_lo, NLl, ca, F,
-        stream.shape[0], n_slots, max(K, 1), _build.current_stream(dev),
+        stream.shape[0], n_slots, max(K, 1), plan.cluster, plan.per, _kernel_flags(plan, flags),
+        _build.current_stream(dev),
     )
     _build.check(code, "frave_tp_decode_step")
     tp_decode_step.launches += 1

@@ -146,8 +146,7 @@ def run_dryrun(n_devices: int = 4, device: str = "cuda", backend: str = "gloo") 
             {"op": "dp_decode", "blobs": pblobs, "shape": (h, w, 1), "out": str(t / "dpp.npy")},
         ]
         res = launch(n_devices, "frave_tpu_torch.parallel.dryrun:run_legs",
-                     {"legs": legs, "dp": dp, "tp": tp, "device": device}, backend=backend,
-                     device=device)
+                     {"legs": legs, "dp": dp, "tp": tp}, backend=backend, device=device)
         np.testing.assert_array_equal(np.load(t / "dp.npy"), batch)
         np.testing.assert_array_equal(np.load(t / "tp.npy"), batch[0])
         np.testing.assert_array_equal(np.load(t / "dpp.npy"), batch)

@@ -54,7 +54,7 @@ from ..images import ColorSpace, ImageMetadata, RasterImage
 from ..ops import rans_torch as RT
 from ..ops import torch_ops as T
 from ..ops.lifting import dequantize_inverse_lift_pixels, forward_lift_quantize_pixels
-from ..ops.tp_decode import tp_decode_row, tp_decode_step
+from ..ops.tp_decode import table_image, tp_decode_row, tp_decode_step
 from .mesh import Mesh
 
 _I32 = torch.int32
@@ -446,12 +446,15 @@ class TPShardedDecoder:
         states, stream, bits, offpk, scales, vp, wp, qdiv, tids = _wire(im, prog, dev)
         tabs = {k: v[0].contiguous() for k, v in
                 GD.wire_tables(prog.lap, bits, offpk, scales).items()}
-        # the plain versions' slot -> symbol tables, once a decode (CPU only)
-        rtabs = RT._row_tables({k: v[None] for k, v in tabs.items()}) if dev.type == "cpu" else None
+        # once a decode: the plain versions' slot -> symbol tables on the
+        # CPU, the kernels' shared-memory table image on the card
+        cpu = dev.type == "cpu"
+        rtabs = RT._row_tables({k: v[None] for k, v in tabs.items()}) if cpu else None
+        image = None if cpu else table_image(tabs)
         local = nl // n
         lo = mesh.rank * local
         x = states[0][:, lo:lo + local].contiguous()
-        args = (x, stream[0], vp[0], wp[0], tabs, rtabs, lo, local)
+        args = (x, stream[0], vp[0], wp[0], tabs, rtabs, image, lo, local)
         if prog.waves is not None:
             plane = self._grid(prog, *args)
         else:
@@ -463,7 +466,7 @@ class TPShardedDecoder:
         return RasterImage(metadata=meta, data=px.T.reshape(self.height, self.width,
                                                             self.channels))
 
-    def _grid(self, prog, x, stream, vparams, wparams, tabs, rtabs, lo, local):
+    def _grid(self, prog, x, stream, vparams, wparams, tabs, rtabs, image, lo, local):
         """The dense-grid decode with lanes split: per row one kernel 3T
         launch and the [n, C] count gather, per wave one values gather."""
         mesh, C, nl, dev = self.mesh, self.channels, prog.nl, x.device
@@ -487,7 +490,7 @@ class TPShardedDecoder:
             for t in range(wd.rows):
                 sym, cnt, st["gptr"] = tp_decode_row(
                     st["x"], st["need"], st["gptr"], st["counts"], mesh.rank,
-                    bk[:, t].contiguous(), act[t].contiguous(), stream, tabs, rtabs)
+                    bk[:, t].contiguous(), act[t].contiguous(), stream, tabs, rtabs, image)
                 with mesh.phase("row"):
                     st["counts"] = mesh.all_gather(cnt, "world")  # THE per-row collective
                 syms.append(sym)
@@ -499,11 +502,11 @@ class TPShardedDecoder:
         GD.wave_chain(prog.waves, vparams, wparams, qplane, scan_wave)
         # the last row's renorm: the final lane states
         _, _, st["gptr"] = tp_decode_row(st["x"], st["need"], st["gptr"], st["counts"],
-                                         mesh.rank, None, None, stream, tabs, rtabs)
+                                         mesh.rank, None, None, stream, tabs, rtabs, image)
         self.final = (st["x"], st["gptr"])
         return qplane
 
-    def _steps(self, prog, x, stream, vparams, wparams, tabs, rtabs, lo, local):
+    def _steps(self, prog, x, stream, vparams, wparams, tabs, rtabs, image, lo, local):
         """The step-tensor decode with lanes split: per step one kernel DT
         launch and the (value, need) [2, C, NL] gather."""
         mesh, C, nl, dev = self.mesh, self.channels, prog.nl, x.device
@@ -515,13 +518,13 @@ class TPShardedDecoder:
         lengths = steps.step_map[:, 2].tolist()
         for t in (t for t, ln in enumerate(lengths) if ln > 0):
             out, gptr = tp_decode_step(x, gptr, steps, prev, t, gathered, lo, vparams, wparams,
-                                       stream, tabs, plane, splane, rtabs)
+                                       stream, tabs, plane, splane, rtabs, image)
             with mesh.phase("step"):
                 g = mesh.all_gather(out, "world")  # [n, 2, C, NLl]
             gathered = g.permute(1, 2, 0, 3).reshape(2, C, nl).contiguous()
             prev = t
         _, gptr = tp_decode_step(x, gptr, steps, prev, -1, gathered, lo, vparams, wparams,
-                                 stream, tabs, plane, splane, rtabs)
+                                 stream, tabs, plane, splane, rtabs, image)
         self.final = (x, gptr)
         return plane
 

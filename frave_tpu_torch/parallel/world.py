@@ -1,17 +1,19 @@
 """Start an n-rank torch.distributed world of fresh processes.
 
     results = launch(n, "frave_tpu_torch.parallel.dryrun:run_legs",
-                     {"device": "cpu", ...}, backend="gloo")
+                     {"legs": ..., "dp": ..., "tp": ...}, backend="gloo", device="cpu")
 
 Each rank is a new interpreter (`python -m frave_tpu_torch.parallel.world
 DIR RANK`) that imports only the port: the target is a function of the
 port, named "module:function", called with the keyword arguments given
-(they and its return value cross as pickles in DIR, a temporary
-directory). The ranks meet through a file:// store in DIR, never a fixed
-TCP port, so several worlds can start at once on one host. A child on the
-CPU runs torch with one thread; a child on the card takes device rank %
-device_count (every rank the one card of a one-card machine: the world
-must then be gloo, as NCCL refuses two ranks on one GPU). A child's
+and the world's `device` (they and its return value cross as pickles in
+DIR, a temporary directory). The ranks meet through a file:// store in DIR, never a fixed
+TCP port, so several worlds can start at once on one host. The ranks run
+on the card unless the caller asks for the CPU (device="cpu"): a child on
+the card takes device rank % device_count (every rank the one card of a
+one-card machine: the world must then be gloo, as NCCL refuses two ranks
+on one GPU), and fails where CUDA is not available; a child on the CPU
+runs torch with one thread. A child's
 exception fails the launch with its traceback, and the other ranks are
 stopped; nothing is swallowed.
 """
@@ -35,20 +37,25 @@ ROOT = Path(__file__).resolve().parent.parent.parent  # the directory holding th
 
 
 def launch(n: int, target: str, kwargs: Optional[dict] = None, backend: str = "gloo",
-           device: str = "cpu", timeout: float = 600.0, env: Optional[dict] = None) -> List:
-    """Run target(**kwargs) on every rank of a new n-rank world with
-    `backend`, each rank's tensors on `device` ("cpu" or "cuda"); returns
-    the ranks' return values in rank order. Raises RuntimeError with every
-    failed rank's traceback (or its exit code) if any rank fails, and
-    TimeoutError after `timeout` seconds; either way every child is
-    stopped first."""
+           device: str = "cuda", timeout: float = 600.0, env: Optional[dict] = None) -> List:
+    """Run target(**kwargs, device=device) on every rank of a new n-rank
+    world with `backend`, each rank's tensors on `device` ("cuda", the
+    default, or "cpu": the one place the device is named, so kwargs name
+    none); returns the ranks' return values in rank order. Raises
+    RuntimeError with every failed rank's traceback (or its exit code) if
+    any rank fails, and TimeoutError after `timeout` seconds; either way
+    every child is stopped first."""
     if n < 1:
         raise ValueError(f"a world needs at least one rank, got {n}")
+    if kwargs and "device" in kwargs:
+        raise ValueError("launch gives the target its device: name it in launch(device=...), "
+                         "not in the target's keyword arguments")
     _split(target)
     tmp = Path(tempfile.mkdtemp(prefix="frave_world_"))
     try:
         with open(tmp / "spec.pkl", "wb") as f:
-            pickle.dump({"target": target, "kwargs": kwargs or {}, "backend": backend,
+            pickle.dump({"target": target, "kwargs": {**(kwargs or {}), "device": device},
+                         "backend": backend,
                          "device": device, "world": n, "timeout": timeout}, f)
         child_env = dict(os.environ if env is None else env)
         child_env["PYTHONPATH"] = os.pathsep.join(
@@ -117,6 +124,9 @@ def _child(tmp: Path, rank: int) -> int:
             spec = pickle.load(f)
         if spec["device"] == "cpu":
             torch.set_num_threads(1)
+        elif not torch.cuda.is_available():
+            raise RuntimeError(f"rank {rank} was asked for device {spec['device']!r}, but CUDA "
+                               "is not available (pass device='cpu' for a CPU world)")
         else:
             torch.cuda.set_device(rank % torch.cuda.device_count())
         dist.init_process_group(

@@ -141,8 +141,8 @@ def mesh_run(tmp_path_factory):
         files.append(str(p))
     res = launch(4, "frave_tpu_torch.parallel.multihost:run_corpus",
                  {"corpus_dir": str(d / "corpus"), "output_dir": str(d / "out"),
-                  "batch_size": 2, "device": "cpu", "hosts": 2, "dp": 2, "tp": 2},
-                 timeout=300)
+                  "batch_size": 2, "hosts": 2, "dp": 2, "tp": 2},
+                 device="cpu", timeout=300)
     return res, files, str(d / "out")
 
 
@@ -178,15 +178,14 @@ def test_two_process_gloo_world_with_resume(tmp_path):
         p = corpus / f"img{i}.npy"
         np.save(p, rng.integers(0, 256, size=(32, 32), dtype=np.uint8))
         files.append(str(p))
-    kw = {"corpus_dir": str(corpus), "output_dir": str(tmp_path / "out"), "batch_size": 4,
-          "device": "cpu"}
-    first = launch(2, "frave_tpu_torch.parallel.multihost:run_corpus", kw)
+    kw = {"corpus_dir": str(corpus), "output_dir": str(tmp_path / "out"), "batch_size": 4}
+    first = launch(2, "frave_tpu_torch.parallel.multihost:run_corpus", kw, device="cpu")
     assert [r["rank"] for r in first] == [0, 1] and all(r["world"] == 2 for r in first)
     assert [r["done"] for r in first] == [[3], [3]]
     merged = merged_manifest(str(tmp_path / "out"))
     assert merged["num_done"] == 6 and sorted(merged["hosts"]) == [0, 1]
     _check_outputs(files, tmp_path / "out")
-    again = launch(2, "frave_tpu_torch.parallel.multihost:run_corpus", kw)
+    again = launch(2, "frave_tpu_torch.parallel.multihost:run_corpus", kw, device="cpu")
     assert [r["ts"] for r in again] == [r["ts"] for r in first]
 
 
@@ -216,10 +215,36 @@ def test_launch_reports_a_failed_rank(tmp_path):
     """A child's exception fails the launch with its traceback."""
     with pytest.raises(RuntimeError, match="FileNotFoundError"):
         launch(2, "frave_tpu_torch.parallel.multihost:run_corpus",
-               {"corpus_dir": str(tmp_path / "missing"), "output_dir": str(tmp_path / "o"),
-                "device": "cpu"}, timeout=120)
+               {"corpus_dir": str(tmp_path / "missing"), "output_dir": str(tmp_path / "o")},
+               device="cpu", timeout=120)
     with pytest.raises(ValueError):
-        launch(1, "os:getcwd")
+        launch(1, "os:getcwd", device="cpu")
+
+
+def test_launch_defaults_to_the_card(tmp_path):
+    """A launch that names no device runs its ranks on the card: without
+    CUDA it fails with the rank's traceback naming CUDA, never falling back
+    to the CPU."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: a default launch would run on it")
+    with pytest.raises(RuntimeError, match="(?s)rank 0:.*CUDA is not available"):
+        launch(1, "frave_tpu_torch.parallel.multihost:run_corpus",
+               {"corpus_dir": str(tmp_path / "missing"), "output_dir": str(tmp_path / "o")},
+               timeout=120)
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_launch_names_the_device_once(tmp_path, device):
+    """launch hands the target its device; a device in the target's
+    keyword arguments too is refused before any rank starts, whether it
+    agrees or not."""
+    with pytest.raises(ValueError, match="launch gives the target its device"):
+        launch(1, "frave_tpu_torch.parallel.multihost:run_corpus",
+               {"corpus_dir": str(tmp_path), "output_dir": str(tmp_path / "o"),
+                "device": device}, device="cpu", timeout=30)
+    assert not (tmp_path / "o").exists()
 
 
 def test_dryrun_four_ranks():

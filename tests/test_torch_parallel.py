@@ -9,8 +9,8 @@ two. The JAX side runs here, in the test process only.
   * each rank's halo-assembled plane equals the numpy build from
     frave_tpu's single-image quantized plane through frave_tpu's
     ShardedEncoder._halo plan, and the halo rides point-to-point rings;
-  * sharded containers (32x32 gray, 24x40 RGB; lossless and HIGH; grid
-    and parallel) are byte-equal to the port's one-card encode, and decode
+  * sharded containers (32x32 gray, 24x40 RGB; lossless and HIGH; grid,
+    parallel and parity) are byte-equal to the port's one-card encode, and decode
     on frave_tpu's numpy and jax decoders;
   * ShardedDecoder and TPShardedDecoder give frave_tpu's pixels on
     containers frave_tpu encoded; the grid tp decode exchanges only the
@@ -50,6 +50,7 @@ ENCODES = [
     ("rgb24x40", "grid", "LOSSLESS"),
     ("rgb24x40", "grid", "HIGH"),
     ("rgb24x40", "parallel", "HIGH"),
+    ("rgb24x40", "parity", "HIGH"),
 ]
 WORLDS = {"2x2": (2, 2), "1x2": (1, 2), "1x4": (1, 4)}
 # tp decodes: (label, (h, w, c), mode, num_lanes, quality) encoded by frave_tpu
@@ -106,7 +107,8 @@ def run(tmp_path_factory):
                      for label, shape, mode, _, _ in TP_CASES]
         (d / world).mkdir()
         out[world] = launch(dp * tp, "frave_tpu_torch.parallel.dryrun:run_legs",
-                            {"legs": legs, "dp": dp, "tp": tp, "device": "cpu"}, timeout=400)
+                            {"legs": legs, "dp": dp, "tp": tp}, device="cpu",
+                            timeout=400)
     return out, d
 
 
@@ -117,7 +119,7 @@ def test_mesh_factorization_matches_jax(n):
 
 @pytest.mark.parametrize("mesh", [(2, 2), (1, 4)])
 @pytest.mark.parametrize("shape,mode", [((32, 32), "grid"), ((24, 40), "parallel"),
-                                        ((96, 96), "grid")])
+                                        ((96, 96), "grid"), ((24, 40), "parity")])
 def test_halo_plan_equals_jax(mesh, shape, mode):
     """The host plan is frave_tpu's, array for array: lanes, rows, the
     owner-grouped schedule tensors, the halo (deltas, sizes, send

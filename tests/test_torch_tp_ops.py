@@ -126,6 +126,96 @@ def test_wrappers_refuse_bad_operands():
                        lane0=16, lanes=32)
 
 
+@pytest.mark.parametrize("seed,C", [(3, 3), (8, 1)])
+def test_table_image_is_the_shared_memory_layout(seed, C):
+    """table_image holds, entry for entry, what load_tables
+    (csrc/rans_common.cuh) writes into shared memory for each channel:
+    the bits clamped to 14 as u32, then each context's staircase clamped
+    to 2^14 as u16 at cdf_slot(e) = (e / 32) * 34 + e % 32 of a row
+    32 * 34 + 2 slots long, each part 16-byte aligned; the padding 0."""
+    rng = np.random.default_rng(seed)
+    CA = 15
+    cdf = torch.as_tensor(rng.integers(-5, (1 << 14) + 50, (C, CA, 1024)), dtype=torch.int32)
+    bits = torch.as_tensor(rng.integers(-2, 17, (C, CA)), dtype=torch.int32)
+    img = TD.table_image({"cdf": cdf, "bits": bits})
+    head = (CA * 4 + 15) // 16 * 16
+    size = head + (CA * 1090 * 2 + 15) // 16 * 16
+    assert img.dtype == torch.uint8 and tuple(img.shape) == (C, size) == (C, TD.image_bytes(CA))
+    for c in range(C):
+        raw = img[c].numpy().tobytes()
+        want_bits = np.zeros(head // 4, np.uint32)
+        for k in range(CA):
+            want_bits[k] = min(max(int(bits[c, k]), 0), 14)
+        assert np.frombuffer(raw[:head], np.uint32).tolist() == want_bits.tolist()
+        want = np.zeros((size - head) // 2, np.uint16)
+        cc = cdf[c].tolist()
+        for k in range(CA):
+            for e in range(1024):
+                want[k * 1090 + (e // 32) * 34 + e % 32] = min(max(cc[k][e], 0), 1 << 14)
+        assert np.array_equal(np.frombuffer(raw[head:], np.uint16), want)
+
+
+# the smoke's shapes: (kind, channels, a rank's lanes at 2 ranks) -> the plan
+PLANS = [
+    (("row", 3, 8192), TD.TPPlan("cluster", 8, 1)),  # 2048x2048 RGB's largest wave
+    (("row", 3, 1024), TD.TPPlan("block", 1, 1)),  # 768x512 RGB
+    (("row", 1, 256), TD.TPPlan("block", 1, 1)),  # 256x256 gray
+    (("step", 3, 8192), TD.TPPlan("cluster", 16, 2, False)),  # e1 2048x2048 RGB parallel
+    (("step", 3, 1024), TD.TPPlan("cluster", 8, 1)),  # e2 768x512 RGB parity
+    (("step", 1, 256), TD.TPPlan("block", 1, 1)),  # e3 256x256 gray parity
+    (("step", 3, 16384), TD.TPPlan("cluster", 16, 4, False)),  # e1 on one rank
+    (("row", 1, 1025), TD.TPPlan("cluster", 2, 1)),
+]
+
+
+@pytest.mark.parametrize("shape,want", PLANS)
+def test_launch_rule_at_the_smoke_shapes(shape, want):
+    """The launch rule: one block up to 1024 pairs (3T: a channel's lanes),
+    else the smallest power-of-two cluster with at most 1024 (3T) or 512
+    (DT) a block (up to 16), the fewest pairs a thread (1, 2 or 4) that
+    cover a block's; the tables by TMA in a cluster of at most 8 blocks,
+    by the threads in one of 16 (e1's)."""
+    assert TD.plan_rule(*shape) == want
+
+
+def test_launch_rule_switches_and_refusals():
+    """Forced sizes and switches; what no variant can run raises."""
+    assert TD.plan_rule("step", 3, 1024, flags=TD.FORCE_BLOCK) == TD.TPPlan("block", 1, 4)
+    assert TD.plan_rule("row", 3, 8192, cluster=8) == TD.TPPlan("cluster", 8, 1)
+    assert TD.plan_rule("step", 3, 8192, flags=TD.TMA) == TD.TPPlan("cluster", 16, 2, True)
+    assert TD.plan_rule("step", 3, 1024, flags=TD.NO_TMA) == TD.TPPlan("cluster", 8, 1, False)
+    assert TD.plan_rule("step", 3, 1024, cluster=16) == TD.TPPlan("cluster", 16, 1, False)
+    assert TD.plan_rule("row", 3, 8192, cluster=16) == TD.TPPlan("cluster", 16, 1, False)
+    assert TD.plan_rule("step", 3, 8192, cluster=8) == TD.TPPlan("cluster", 8, 4, True)
+    assert TD.plan_rule("row", 3, 1024, flags=TD.FORCE_BLOCK | TD.NO_TMA) == TD.TPPlan(
+        "block", 1, 1, False)
+    for args, kw in ((("step", 3, 8192), {"flags": TD.FORCE_BLOCK}),
+                     (("step", 3, 8192), {"cluster": 2}),
+                     (("row", 3, 8192), {"cluster": 3}),
+                     (("step", 5, 64), {}),
+                     (("row", 3, 64), {"flags": TD.TMA | TD.NO_TMA}),
+                     (("row", 1, 16 * 4096 + 1), {})):
+        with pytest.raises(ValueError):
+            TD.plan_rule(*args, **kw)
+
+
+def test_wrappers_refuse_designs_on_the_cpu():
+    """cluster and flags choose a kernel's design; the CPU runs the plain
+    version and has none."""
+    x0, g0, bkt, act, stream, tabs = KC.decode_problem(np.random.default_rng(1), 3, 3, 32, "valid")
+    need = torch.zeros((3, 32), dtype=torch.bool)
+    counts = torch.zeros((1, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="design"):
+        TD.tp_decode_row(x0.clone(), need, g0.reshape(1), counts, 0, bkt[0], act[0], stream,
+                         tabs, flags=TD.NO_TMA)
+
+
+# every design on the card: the rule, one block, each cluster size, the
+# tables by threads and by TMA, one block with the tables by threads (a
+# design the plan refuses at a shape is skipped there, at least one runs)
+CARD_DESIGNS = tuple(KC.TP_DESIGNS)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,shape,kind,ranks", [
     ("tp_decode_row", (30, 3, 16384), "valid", 2),
@@ -133,12 +223,19 @@ def test_wrappers_refuse_bad_operands():
     ("tp_decode_row", (12, 1, 512), "valid", 4),
     ("tp_decode_step", (64, 64, 3, "parallel"), "valid", 2),
     ("tp_decode_step", (256, 256, 1, "parity"), "garbage", 4),
+    ("tp_decode_step", (512, 512, 3, "parallel"), "valid", 2),
+    ("tp_decode_step", (512, 512, 3, "parallel"), "garbage", 1),
 ])
 def test_tp_kernels_on_the_card(name, shape, kind, ranks):
-    """Kernels 3T and DT chained over a decode on the card, bit-equal to
-    their plain versions chained the same way and to the one-card plain
-    decode."""
+    """Kernels 3T and DT chained over a decode on the card at every design,
+    bit-equal to their plain versions chained the same way and to the
+    one-card plain decode; the 512x512 RGB parallel program's steps take a
+    cluster under the rule."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
-    r = KC.tp_check(name, shape, kind, torch.device("cuda", 0), ranks=ranks)
-    assert r["max_abs_err"] == 0, r
+    r = KC.tp_check(name, shape, kind, torch.device("cuda", 0), ranks=ranks,
+                    designs=CARD_DESIGNS)
+    assert r["errs"] and r["max_abs_err"] == 0, r
+    assert "rule" in r["errs"] and "tables by threads" in r["errs"], r["plans"]
+    if shape == (512, 512, 3, "parallel"):
+        assert r["plans"]["rule"].variant == "cluster", r["plans"]
