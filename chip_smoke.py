@@ -21,7 +21,11 @@ script exits nonzero without printing a result:
                rows, and at every design point: rows loaded ahead x lanes
                a block; dequantize_inverse_lift_pixels on the image's own
                program, every transform id at C = 3; the largest decode
-               wave);
+               wave; wave_contexts (kernel W) on every image's program in
+               both modes, its largest decode wave and its statistics, on
+               the image's coefficients and on garbage, and wave_finish
+               (kernel V) on its largest wave, on residual-like and on
+               garbage symbols);
                decode_scan_wave also on valid and garbage waves up to
                32,768 lanes, at its launch rule's cluster size and forced
                to 1, 2, 4, 8 and 16 blocks; then every kernel on whole
@@ -32,18 +36,19 @@ script exits nonzero without printing a result:
                256x256 gray at B = 64. Kernel times are device times
                of back-to-back calls (kernel_check.device_ms), beside the
                wrapper's and the plain version's CUDA-event medians per
-               call; the byte bound of each; the empty cross-block
-               exchange loop at 2, 4, 8 and 16 blocks;
+               call; the byte bound of each (W and V also beside an empty
+               launch of their grid); the empty cross-block exchange loop
+               at 2, 4, 8 and 16 blocks;
   3. main    — the port's public encode -> decode (seeded
                natural-statistics images), five paths (a-e), each with the
                launch counts zeroed just before it and read just after it
-               (every kernel launched, forward_lift_quantize_pixels and
-               encode_scan once an encode, dequantize_inverse_lift_pixels
-               once a decode,
-               decode_scan_wave once per non-empty wave of a dense grid
-               decode, decode_steps once every other decode, the plain
-               decode row never; every container at the lane count the kernels
-               phase checked). Every image is held
+               (every kernel launched, forward_lift_quantize_pixels,
+               wave_contexts and encode_scan once an encode,
+               dequantize_inverse_lift_pixels once a decode,
+               wave_contexts, decode_scan_wave and wave_finish once per
+               non-empty wave of a dense grid decode, decode_steps once
+               every other decode, the plain decode row never; every
+               container at the lane count the kernels phase checked). Every image is held
                against the reference by sources that are not the JAX
                package's Python: the C++ oracle decodes the port's
                container to the port's pixels, and the port decodes the
@@ -81,7 +86,9 @@ script exits nonzero without printing a result:
                   cluster variant at every size it takes, its one-block
                   variant where that fits; timed beside its byte bound,
                   the exchange floor and the empty-step floor, and its
-                  design sweep, each feature switched off in turn); e3 4
+                  design sweep, each feature switched off in turn; kernel
+                  W's statistics bit-equal on the program, valid and
+                  garbage); e3 4
                   256x256 gray parity images in one encode and one
                   decode batch (one kernel D launch, each container
                   byte-equal to its own, D at every design); e4
@@ -134,7 +141,10 @@ script exits nonzero without printing a result:
                   exchange's wall; g2 a 1-rank NCCL world, the same
                   encode and dp decode; g3 the CorpusRunner on 2 ranks
                   over a .npy corpus and a resume that re-encodes none;
-  4. report  — encode/decode ms and MP/s, per-stage ms at every image, kernel
+  4. report  — encode/decode ms and MP/s, per-stage ms at every image
+               (encode/stats and decode/waves among them), the launches of
+               the port's kernels and the torch operators of one grid
+               decode at each image, kernel
                3's device time per 2048x2048 RGB decode at the launch rule
                and forced to one block, kernel A's device time with and
                without its pixel reads, kernel B's with and without its
@@ -165,6 +175,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import frave_tpu_torch
 from frave_tpu_torch import EncoderOptions, EncoderQuality, RasterImage, kernel_check
@@ -370,23 +381,25 @@ def zero_counts():
 def read_counts(label: str, encodes: int, decodes: int, waves: int, steps: int = 0) -> dict:
     """The counts since zero_counts() over `encodes` encode batches and
     `decodes` decode batches (a one-image call is a batch of one): exactly
-    one forward_lift_quantize_pixels and one encode_scan launch an encode
-    batch, one dequantize_inverse_lift_pixels a decode batch, one
-    decode_scan_wave per non-empty wave of each grid decode batch with a
-    dense lattice (`waves` in all), one decode_steps each other decode
-    batch (`steps` in all), whatever the batch size; the plain decode row
-    never."""
+    one forward_lift_quantize_pixels, one wave_contexts (the statistics)
+    and one encode_scan launch an encode batch, one
+    dequantize_inverse_lift_pixels a decode batch, one wave_contexts, one
+    decode_scan_wave and one wave_finish per non-empty wave of each grid
+    decode batch with a dense lattice (`waves` in all), one decode_steps
+    each other decode batch (`steps` in all), whatever the batch size; the
+    plain decode row never."""
     launches = {n: fn.launches for n, fn in WRAPPERS.items()}
     want = {"forward_lift_quantize_pixels": encodes, "encode_scan": encodes,
             "dequantize_inverse_lift_pixels": decodes, "decode_scan_wave": waves,
-            "decode_steps": steps}
+            "decode_steps": steps, "wave_contexts": encodes + waves, "wave_finish": waves}
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
     if RT.decode_row.calls:
         raise AssertionError(f"{label}: the plain decode row ran {RT.decode_row.calls} times")
-    print(f"main {label}: launches {json.dumps(launches)} (one kernel A and C an encode "
-          f"batch, one kernel B a decode batch, one kernel 3 per non-empty wave of a dense "
-          f"grid decode batch, one kernel D each other decode batch); plain decode rows 0")
+    print(f"main {label}: launches {json.dumps(launches)} (one kernel A, W and C an encode "
+          f"batch, one kernel B a decode batch, one kernel W, 3 and V per non-empty wave of a "
+          f"dense grid decode batch, one kernel D each other decode batch); plain decode "
+          f"rows 0")
     return launches
 
 
@@ -472,6 +485,8 @@ def run_checks(plan: dict, dev, checks: dict) -> None:
             if timed:
                 times = (f" kernel {r['ms']:.4f} ms (wrapper {r['wrapper_ms']:.4f}) plain "
                          f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.5f} ms")
+                if "floor_ms" in r:
+                    times += f" empty-launch floor {r['floor_ms']:.5f} ms"
             print(f"{desc}: max_abs_err {r['max_abs_err']}{times}")
             if "cluster_ms" in r:
                 print(f"kernel {name} {tuple(sh)} device ms by cluster size (0: the rule): "
@@ -492,6 +507,28 @@ def exchange_floor(dev) -> dict:
         print(f"kernel exchange floor: {EXCHANGE_ROWS} rows at {size} blocks {ms:.4f} ms "
               f"({ms / EXCHANGE_ROWS * 1e3:.3f} us a row)")
     return out
+
+
+class OpCount(TorchDispatchMode):
+    """Counts the torch operators dispatched under it (views included)."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def decode_launches(blob: bytes, dev) -> tuple:
+    """One decode of `blob`: the launches of the port's kernels (their
+    counters; zeroed first) and the torch operators it dispatches."""
+    zero_counts()
+    with OpCount() as ops:
+        frave_tpu_torch.decode(blob, device="cuda")
+    sync(dev)
+    return {n: fn.launches for n, fn in WRAPPERS.items() if fn.launches}, ops.n
 
 
 def decode_kernel_ms(blob: bytes, dev) -> tuple:
@@ -798,6 +835,25 @@ def d_check(label: str, cis, dev, kind: str = "valid", timed: bool = True,
     return r
 
 
+def w_stats_check(label: str, shape, images: int, dev, checks: dict) -> None:
+    """Kernel W's statistics (the encode mode) against its plain version on
+    a step-tensor program (shape (h, w, c, mode)), on an image's
+    coefficients (timed) and on garbage, bit-equal."""
+    for kind in kernel_check.DECODE_KINDS:
+        r = kernel_check.check("wave_contexts", shape, dev, seed=7, timed=kind == "valid",
+                               kind=("encode", kind), images=images)
+        times = ""
+        if r["ms"] is not None:
+            times = (f" kernel {r['ms']:.4f} ms (wrapper {r['wrapper_ms']:.4f}) plain "
+                     f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.5f} ms empty-launch floor "
+                     f"{r['floor_ms']:.5f} ms")
+        print(f"kernel wave_contexts {label} statistics {kind}: max_abs_err "
+              f"{r['max_abs_err']}{times}")
+        if r["max_abs_err"] != 0:
+            raise AssertionError(f"{label}: wave_contexts disagrees with its plain version")
+        checks.setdefault("wave_contexts", []).append(r)
+
+
 def path_e_image(case, label, mode, oracle_mode, oracle, refs, dev, totals, floor, checks):
     """e1 / e2: one full-width image in a step-tensor mode, lossless: the
     program (timed), three encode -> decode round trips (one kernel A, C,
@@ -838,6 +894,7 @@ def path_e_image(case, label, mode, oracle_mode, oracle, refs, dev, totals, floo
     d_report(lab, r, floor, prog.num_steps)
     checks.setdefault("decode_steps", []).append(r)
     d_check(f"{lab} garbage", [ci], dev, "garbage", timed=False, rng=np.random.default_rng(12))
+    w_stats_check(lab, (h, w, c, mode), 0, dev, checks)
     return blob
 
 
@@ -874,6 +931,7 @@ def path_e_batch(dev, totals, floor, checks) -> None:
     d_report(lab, r, floor, PT.get_program(*GRAY, cis[0].num_lanes, 1, dev, "parity").num_steps)
     checks.setdefault("decode_steps", []).append(r)
     d_check(f"{lab} garbage", cis, dev, "garbage", timed=False, rng=np.random.default_rng(13))
+    w_stats_check(lab, (*GRAY, 1, "parity"), E_BATCH, dev, checks)
 
 
 def path_e_small(dev, totals, oracle, e2_blob) -> list:
@@ -1076,13 +1134,14 @@ def path_f_cli(dev, tmp, totals: dict, big_blob: bytes) -> dict:
     np.save(tmp / "grid.npy", grid_px)
     np.save(tmp / "parity.npy", par_px)
     waves = kernel_check.grid_shapes(*F_GRID[:3])["waves"]
-    enc = {"forward_lift_quantize_pixels": 1, "encode_scan": 1}
+    enc = {"forward_lift_quantize_pixels": 1, "encode_scan": 1, "wave_contexts": 1}
     # the grid encode and decode each alone (their walls are the cold
     # starts), then the native decode beside the parity encode
     groups = [
         [("grid encode", ["encode", "grid.npy", "-o", "grid.frv"], enc)],
         [("grid decode", ["decode", "grid.frv", "-o", "grid_out.npy"],
-          {"dequantize_inverse_lift_pixels": 1, "decode_scan_wave": waves})],
+          {"dequantize_inverse_lift_pixels": 1, "decode_scan_wave": waves,
+           "wave_contexts": waves, "wave_finish": waves})],
         [("grid decode --backend native (beside the parity encode)",
           ["decode", "grid.frv", "-o", "grid_native.npy", "--backend", "native"], {}),
          ("parity encode (beside the native decode)",
@@ -1164,8 +1223,9 @@ def path_f_optimize(dev, tmp, totals: dict) -> None:
     runs = got["forward_lift_quantize_pixels"]
     if dev.type == "cuda" and (runs < n_cands or got != {**{n: 0 for n in got},
                                                          "forward_lift_quantize_pixels": runs,
-                                                         "encode_scan": runs}):
-        raise AssertionError(f"f4 search: launches {got}, expected one A and C an encode")
+                                                         "encode_scan": runs,
+                                                         "wave_contexts": runs}):
+        raise AssertionError(f"f4 search: launches {got}, expected one A, W and C an encode")
     for n, k in got.items():
         totals[n] += k
     (best_cpu, res_cpu), t_cpu = timed(lambda: CLI.search_predictors(img, cands, device="cpu"))
@@ -1404,9 +1464,11 @@ def path_g(dev, big_px, big_blob, e_blobs, oracle, big_shapes, totals, checks) -
         rows = big_shapes["grid"][0]
         rgb_waves = kernel_check.grid_shapes(*RGB, 3)["waves"]
         g_counts("g1 encode 2048x2048 RGB dp 1 x tp 2", per[0],
-                 {"forward_lift_quantize_pixels": 1, "encode_scan": 1})
+                 {"forward_lift_quantize_pixels": 1, "encode_scan": 1, "wave_contexts": 1})
+        big_waves = big_shapes["waves"]
         tot = g_counts("g1 tp decode 2048x2048 RGB grid", per[1],
-                       {"tp_decode_row": rows + 1, "dequantize_inverse_lift_pixels": 1})
+                       {"tp_decode_row": rows + 1, "dequantize_inverse_lift_pixels": 1,
+                        "wave_contexts": big_waves, "wave_finish": big_waves})
         totals["tp_decode_row"] = tot["tp_decode_row"]
         steps = 0
         for k, leg in (("e1", per[2]), ("e2", per[3])):
@@ -1416,7 +1478,8 @@ def path_g(dev, big_px, big_blob, e_blobs, oracle, big_shapes, totals, checks) -
             steps += tot["tp_decode_step"]
         totals["tp_decode_step"] = steps
         g_counts(f"g1 dp decode {G_DP}x 768x512 RGB", per[4],
-                 {"decode_scan_wave": rgb_waves, "dequantize_inverse_lift_pixels": 1})
+                 {"decode_scan_wave": rgb_waves, "dequantize_inverse_lift_pixels": 1,
+                  "wave_contexts": rgb_waves, "wave_finish": rgb_waves})
         r0 = res[0]
         print(f"main g1 gloo world of {G_RANKS} ranks: sharded encode byte-equal to the one-card "
               f"container ({len(sharded)} B, halo {r0[0]['halo']}), the oracle decodes it; tp "
@@ -1447,9 +1510,11 @@ def path_g(dev, big_px, big_blob, e_blobs, oracle, big_shapes, totals, checks) -
         if not np.array_equal(np.load(t / "dp_nccl.npy"), np.stack(rgb)):
             raise AssertionError("g2: the NCCL dp decode does not give the images")
         g_counts("g2 nccl encode", [res[0][0]], {"forward_lift_quantize_pixels": 1,
-                                                 "encode_scan": 1})
+                                                 "encode_scan": 1, "wave_contexts": 1})
         g_counts("g2 nccl dp decode", [res[0][1]], {"decode_scan_wave": rgb_waves,
-                                                    "dequantize_inverse_lift_pixels": 1})
+                                                    "dequantize_inverse_lift_pixels": 1,
+                                                    "wave_contexts": rgb_waves,
+                                                    "wave_finish": rgb_waves})
         print(f"main g2 NCCL world of 1 rank: encode byte-equal, dp decode the images; world "
               f"{g2_s:.3f} s, encode {res[0][0]['encode_s']:.3f} s")
 
@@ -1491,8 +1556,8 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    kind = torch.cuda.get_device_name(0)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
+    card = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {card}")
     t_start = time.perf_counter()
 
     # ---- 1. build: nvcc per kernel source and g++ on the native host
@@ -1555,6 +1620,14 @@ def main() -> int:
         plan["encode_scan"].append((sh["grid"], None, True, (0,), 0))
         plan["decode_scan_wave"].append((sh["wave"], "garbage", False, CLUSTERS, 0))
         plan["decode_scan_wave"].append((sh["wave"], "valid", True, CLUSTERS, 0))
+        # W on the image's program: its largest decode wave and its
+        # statistics, on its coefficients (timed) and on garbage; V on the
+        # largest wave
+        for mode in kernel_check.WAVE_MODES:
+            for pk in kernel_check.DECODE_KINDS[::-1]:
+                plan["wave_contexts"].append((px.shape, (mode, pk), pk == "valid", (0,), 0))
+        for pk in kernel_check.DECODE_KINDS[::-1]:
+            plan["wave_finish"].append((px.shape, pk, pk == "valid", (0,), 0))
     # whole batches in one launch: 768x512 RGB at B = 4 and kernel 3 with
     # more clusters than are resident, untimed; then 256x256 gray at
     # B = 64, bench.py's batch, timed last (the kernels line reports it)
@@ -1563,6 +1636,9 @@ def main() -> int:
         plan["forward_lift_quantize_pixels"].append(((h, w, c), (1, "lossless"), timed, (0,), nimg))
         plan["dequantize_inverse_lift_pixels"].append(((h, w, c), 0, timed, (0,), nimg))
         plan["encode_scan"].append((sh["grid"], None, timed, (0,), nimg))
+        for mode in kernel_check.WAVE_MODES[::-1]:
+            plan["wave_contexts"].append(((h, w, c), (mode, "valid"), timed, (0,), nimg))
+        plan["wave_finish"].append(((h, w, c), "valid", timed, (0,), nimg))
         if not timed:
             plan["decode_scan_wave"] += [(sh["wave"], k, False, (0,), nimg)
                                          for k in kernel_check.DECODE_KINDS]
@@ -1578,6 +1654,8 @@ def main() -> int:
               "(kernel B's checks and the main path share it)")
     checks = {}
     run_checks(plan, dev, checks)
+    for name in kernel_check.WAVE_KERNELS:  # the B = 64 batch's decode wave: the kernels line's
+        checks[name][-1]["line"] = True
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, shape, nimg in [(label, px.shape, 0) for label, px in all_images.items()] + [
             (f"{BATCH}x 256x256 gray", (*GRAY, 1), BATCH)]:
@@ -1741,6 +1819,9 @@ def main() -> int:
               f"decode {td * 1e3:.3f} ms ({mp / td:.3f} MP/s), median of {reps}")
         print(f"report {label} stages ms: {json.dumps(stage_ms(px, opts, dev))}")
     for label, blob in [(label, runs[label][0]) for label in images] + [(big_label, big_blob)]:
+        ours, ops = decode_launches(blob, dev)
+        print(f"report {label}: one grid decode launches {json.dumps(ours)} of the port's "
+              f"kernels ({sum(ours.values())}) and dispatches {ops} torch operators")
         rule_ms, one_ms, bound_ms = decode_kernel_ms(blob, dev)
         print(f"report {label}: decode_scan_wave device ms per decode "
               f"({shapes[label]['waves']} launches): launch rule {rule_ms:.4f}, one block "
@@ -1785,6 +1866,8 @@ def main() -> int:
         if name == "decode_steps":
             entry.update({k: at[k] for k in ("variant", "per", "prefetch", "steps",
                                              "exchange_floor_ms", "step_floor_ms")})
+        if name in kernel_check.WAVE_KERNELS:
+            entry.update({"kind": at["kind"], "floor_ms": at["floor_ms"]})
         kernels.append(entry)
     for name, (_, _, src, replaces) in kernel_check.TP_KERNELS.items():
         rs = checks[name]
@@ -1800,7 +1883,7 @@ def main() -> int:
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}))
     return 0
 

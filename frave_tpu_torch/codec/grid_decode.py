@@ -9,12 +9,17 @@ plus a short list of scale-2 fixups. The rANS lanes are packed per wave
 (rank within the wave), so symbols <-> lanes is one static gather per
 wave, outside the row loop.
 
-Differences from the JAX module, none of which changes an integer:
-value grids are int32 per channel ([C, A, B], fill 0) instead of the
-TPU's packed 10-bit u32 (RGB) / int16 (gray) planes, and each wave's
-rANS rows are one ops/rans_torch.decode_scan_wave call (kernel 3 on the
-card: an integer cdf search and a block scan for the word ranks) instead
-of the XLA scan of bf16 one-hot staircase steps.
+The decode (build_grid_decode) does not build those grids: each tap is a
+coefficient slot the schedule names, so a wave's contexts come from the
+schedule records (kernel W, ops/wave_ctx.py), its rANS rows from one
+ops/rans_torch.decode_scan_wave call (kernel 3 on the card: an integer
+cdf search and a block scan for the word ranks, in place of the XLA scan
+of bf16 one-hot staircase steps) and its values go into the plane by
+kernel V. The shift-plane chain stays as the reference the records are
+held against: wave_chain (the dense decode's wave loop) and
+build_grid_encode (the dense statistics); value
+grids are int32 per channel ([C, A, B], fill 0) there instead of the
+TPU's packed 10-bit u32 (RGB) / int16 (gray) planes. No integer differs.
 
 Both take a same-shape batch (the JAX program's vmap over B): every stage
 whose channels are independent runs over B*C rows (the tap planes,
@@ -37,8 +42,9 @@ from ..fractal.gridplan import GridPlan
 from ..fractal.gridplan_torch import apply_plan
 from ..fractal.lattice import build_wave_plans, get_lattice_grids
 from ..ops import torch_ops as T
-from ..ops.lifting import dequantize_inverse_lift_pixels
+from ..ops.lifting import dequantize_inverse_lift_pixels, zero_plane
 from ..ops.rans_torch import decode_scan_wave, decode_tables
+from ..ops.wave_ctx import wave_contexts, wave_finish
 
 _I64 = torch.int64
 
@@ -243,7 +249,9 @@ def wave_chain(waves: List[WaveDev], vparams, wparams, qrows, scan_wave) -> None
     (wave 0 context-free, wave 1 off wave 0's DC grid, wave 2 off the DC
     grid, every later wave off its parent grid's broadcast), then
     scan_wave(wd, buckets [rows, kw], predictions) -> values [rows, kw]
-    int32, stored at the wave's slots of qrows [rows, n_slots]."""
+    int32, stored at the wave's slots of qrows [rows, n_slots]. The
+    reference of the records' route (build_grid_decode): the tests hold
+    kernel W's buckets and predictions, wave by wave, against it."""
     rows = qrows.shape[0]
     w0, w1, w2 = waves[0], waves[1], waves[2]
     z = torch.zeros((rows, w0.kw, 6), dtype=torch.int32, device=qrows.device)
@@ -275,14 +283,23 @@ def wave_chain(waves: List[WaveDev], vparams, wparams, qrows, scan_wave) -> None
         parent = _to_grid(wd, vv)
 
 
+def wave_starts(waves: List[WaveDev]) -> List[int]:
+    """Each wave's first schedule index: the waves' symbols are contiguous
+    in schedule order, in raster order within a wave (the packed lanes)."""
+    return np.cumsum([0] + [wd.kw for wd in waves])[:-1].tolist()
+
+
 def build_grid_decode(prog, geo, waves: List[WaveDev]):
     """The dense decode for a grid-mode CodecProgram. Returns
     decode(states [B, C, NL] int64, stream [B, W] int32, wire_bits
     [B, C, CA], offpk [B, C, CA, 32], scales [B, C, CA], vparams / wparams
     [B, C, F, 6] f32, qdiv [B, 512] int32, tids [B] int32) -> pixels
-    [B, C, HW] uint8 (all tensors on the program's device): one
-    decode_scan_wave launch per non-empty wave and one kernel B launch for
-    the whole batch."""
+    [B, C, HW] uint8 (all tensors on the program's device): per non-empty
+    wave one launch each of kernel W (its contexts from the schedule
+    records, ops/wave_ctx.py), kernel 3 (its rANS rows) and kernel V (its
+    values into the plane), then one kernel B launch for the whole batch.
+    The records give the dense wave chain's buckets and predictions
+    (wave_chain, kept as their reference)."""
     n_slots = prog.n_slots
     C = prog.channels
     nl = prog.nl
@@ -291,6 +308,7 @@ def build_grid_decode(prog, geo, waves: List[WaveDev]):
     if geo.depth != 9:
         raise NotImplementedError(f"depth {geo.depth}: kernel B takes depth 9 only")
     dev = prog.device
+    live = [(wd, (k0, wd.kw, nl)) for wd, k0 in zip(waves, wave_starts(waves)) if wd.kw]
 
     def decode(states, stream, wire_bits, offpk, scpk, vparams, wparams, qdiv, tids,
                stages=None):
@@ -303,25 +321,14 @@ def build_grid_decode(prog, geo, waves: List[WaveDev]):
         # the fits of every (image, channel) row
         vparams = vparams.reshape((BC,) + vparams.shape[2:])
         wparams = wparams.reshape((BC,) + wparams.shape[2:])
-        state = {"x": states, "gptr": torch.zeros((B,), dtype=_I64, device=dev)}
-        # [B, C, n_slots] (n_slots = 512 T: rows 16-byte aligned for kernel
-        # B's vector loads), written through its [B*C, n_slots] view
-        qplane = torch.zeros((B, C, n_slots), dtype=torch.int32, device=dev)
-
-        def scan_wave(wd, buckets, preds):
-            """The wave's rows for [B*C, kw] buckets and predictions ->
-            values [B*C, kw]; one decode_scan_wave launch for the batch."""
-            if wd.rows == 0:
-                return preds.new_zeros((BC, 0)).to(torch.int32)
-            pad = wd.rows * nl - wd.kw
-            bk = torch.nn.functional.pad(buckets.to(torch.int32), (0, pad))
-            bk = bk.reshape(B, C, wd.rows, nl).transpose(1, 2).contiguous()  # [B, rows, C, NL]
-            syms, state["x"], state["gptr"] = decode_scan_wave(
-                state["x"], state["gptr"], bk, wd.active_rows, stream, tabs)
-            syms = syms.transpose(1, 2).reshape(BC, wd.rows * nl)[:, : wd.kw]
-            return (T.unpack_signed(syms) + preds).to(torch.int32)
-
-        wave_chain(waves, vparams, wparams, qplane.view(BC, n_slots), scan_wave)
+        x, gptr = states, torch.zeros((B,), dtype=_I64, device=dev)
+        # kernel B reads the planes [B, C, n_slots + 1], W and V their rows
+        qplane = zero_plane(B, C, n_slots, dev)
+        rows = qplane.reshape(BC, n_slots + 1)
+        for wd, wave in live:
+            buckets, preds = wave_contexts(rows, prog.records, vparams, wparams, C, wave)
+            syms, x, gptr = decode_scan_wave(x, gptr, buckets, wd.active_rows, stream, tabs)
+            wave_finish(syms[None], preds, prog.records, wave, rows, C)
         if stages is not None:
             stages.mark("decode/waves")
 
@@ -349,7 +356,8 @@ def fit_stride(kw: int) -> int:
 
 
 def build_grid_encode(prog, geo, sched, waves: List[WaveDev]):
-    """Dense grid-mode encode statistics (grid_decode.build_grid_encode):
+    """Dense grid-mode encode statistics (grid_decode.build_grid_encode),
+    the reference of the records' statistics (CodecProgram._grid_stats):
     tap planes from shifts of the known coefficient plane in wave order,
     predictor fits on a subsample of at most FRAVE_FIT_CAP cells per wave,
     contexts evaluated on the dense grid. Returns

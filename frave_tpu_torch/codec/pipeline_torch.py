@@ -10,10 +10,12 @@ the header row) keeps a leading [B] axis. Each of the four kernels takes
 the whole batch in one launch. The one-image calls are batches of one.
 
 Encode (CodecProgram.encode_exec): channel transform, leaf gather,
-forward lifting + quantize (one launch, kernel A) -> statistics (the step-tensor
-gather; in grid mode from K = 2^18 symbols up the dense shift-plane path of
-grid_decode.build_grid_encode) -> Gram/Cholesky predictor
-fits rounded to the f16 wire values -> contexts and zig-zag symbols ->
+forward lifting + quantize (one launch, kernel A) -> statistics: one
+gather of the fit samples' taps (every HF symbol; in grid mode from K =
+2^18 symbols up every fit_stride-th of a wave, as the JAX program's dense
+grid_decode.build_grid_encode subsamples) -> Gram/Cholesky predictor
+fits rounded to the f16 wire values -> contexts and zig-zag symbols from
+the schedule records (one launch, kernel W, ops/wave_ctx.py) ->
 exact histogram -> context tables -> reverse rANS scan (kernel C) over
 the program's row map (grid mode: each wave's rows; the parallel and
 parity modes: K symbols packed tightly) -> stream compaction per image
@@ -22,7 +24,8 @@ decode order) -> one packed int32 row per image (headers + stream) that
 the host unpacks into a container.
 
 Decode (CodecProgram.decode_exec): table regeneration -> grid mode with a
-dense lattice: per wave, tap planes, contexts, the rANS rows (kernel 3);
+dense lattice: per wave, the contexts from the schedule records (kernel
+W), the rANS rows (kernel 3), the values into the plane (kernel V);
 every other program (the parallel and parity modes, and grid-mode shapes
 under ~32 px a side): every step of the step tensors in one launch of
 kernel D (ops/step_decode.py) -> dequantize + inverse lifting, clamp,
@@ -86,10 +89,11 @@ from ..ops.rans_torch import (
     stream_compact_grid,
 )
 from ..ops import step_decode as SD
+from ..ops import wave_ctx as WC
 from ..ops.step_decode import decode_steps
 from ..profiling import stage_timer
 from .channel_transform import choose_transform
-from .grid_decode import build_grid_decode, build_grid_encode, get_wave_devs, wire_tables
+from .grid_decode import build_grid_decode, fit_stride, get_wave_devs, wire_tables
 from .container import deserialize, serialize
 from .options import EncoderOptions, quantization_matrix
 
@@ -326,13 +330,16 @@ class CodecProgram:
 
         pg = geo.pixel_gather.astype(np.int64)  # [T, N]
         self.leaf_mask_u8 = put(pg >= 0, torch.uint8)
-        self.sc = put(sched.sched_coef)
-        self.snbr_safe = put(
-            np.where(sched.sched_nbr >= 0, sched.sched_nbr, n_slots)
-        )
-        self.slf = put(sched.sched_lf, torch.bool)
-        self.sgrp = put(sched.sched_group)
-        self.sfbkt = put(sched.sched_fbkt)
+        # the schedule's symbols on the host (absent taps at the zero slot);
+        # on the device kernels W and V read one 32-byte record a symbol
+        self.sc = sched.sched_coef.astype(np.int64)
+        self.snbr_safe = np.where(sched.sched_nbr >= 0, sched.sched_nbr, n_slots).astype(np.int64)
+        self.slf = sched.sched_lf.astype(bool)
+        self.sgrp = sched.sched_group.astype(np.int64)
+        self.sfbkt = sched.sched_fbkt.astype(np.int64)
+        self.records = WC.upload(
+            WC.records_host(self.sc, sched.sched_nbr, self.slf, self.sgrp, self.sfbkt, n_slots),
+            n_slots, dev)
         self.lap = put(_LAPLACE_GRID_ROWS)  # [NUM_SCALES, 7, 1024]
         self.glog2 = put(_GRID_LOG2, _F32)
         self.gzero = put(_LAPLACE_GRID_ROWS == 0, _F32)
@@ -366,6 +373,7 @@ class CodecProgram:
         self.grid_enc = None
         self.steps = self.perm = None
         self.num_steps = 0
+        self.fit_samples = {False: self._fit_samples(put, strided=False)}
         waves = None
         if mode == "grid":
             try:
@@ -377,7 +385,8 @@ class CodecProgram:
             self.decode_fn = build_grid_decode(self, geo, waves)
             genc = os.environ.get("FRAVE_GRID_ENC", "1")
             if genc == "force" or (genc == "1" and K >= GRID_ENC_MIN_K):
-                self.grid_enc = build_grid_encode(self, geo, sched, waves)
+                self.fit_samples[True] = self._fit_samples(put, strided=True)
+                self.grid_enc = self._grid_stats
             return self
         lane_steps = get_lane_steps(h, w, nl, depth, mode)
         if lane_steps.rows_are_steps != (mode == "grid") or (
@@ -415,18 +424,40 @@ class CodecProgram:
 
         return exp(vp_np), exp(wp_np), bool(use_w)
 
-    def _step_stats(self, qplane, overrides):
-        """The step-tensor statistics of qplane [rows, n_slots + 1], a row
-        one (image, channel): one bulk neighbour gather, per-group fits
-        over static schedule ranges, per-symbol contexts."""
-        vals = qplane[:, self.snbr_safe]  # [rows, K, 6]
-        target = qplane[:, self.sc]  # [rows, K]
-        Xs_l = [vals[:, lo:hi] for lo, hi in self.group_ranges]
-        ys_l = [target[:, lo:hi] for lo, hi in self.group_ranges]
+    def _fit_samples(self, put, strided: bool):
+        """The fit samples of every predictor group on the device: (tap
+        slots [n, 6], target slots [n], the groups' sample counts), the
+        groups' schedule ranges in order. Every HF symbol of a group, or,
+        strided (grid mode's statistics from GRID_ENC_MIN_K symbols up, as
+        grid_decode.build_grid_encode subsamples), every fit_stride-th
+        symbol of its range (a grid wave, in raster order)."""
+        ks = [np.arange(lo, hi, fit_stride(hi - lo) if strided else 1)
+              for lo, hi in self.group_ranges]
+        idx = np.concatenate(ks)
+        return put(self.snbr_safe[idx]), put(self.sc[idx]), [k.shape[0] for k in ks]
+
+    def _stats(self, qplane, overrides, strided: bool):
+        """The statistics of qplane [rows, n_slots + 1], a row one (image,
+        channel) of a batch: the fit samples' taps and targets in one
+        gather, the per-group fits, then every symbol's bucket and zig-zag
+        symbol in one launch of kernel W (ops/wave_ctx.py)."""
+        taps, target, sizes = self.fit_samples[strided]
+        Xs_l = torch.split(qplane[:, taps], sizes, dim=1)
+        ys_l = torch.split(qplane[:, target], sizes, dim=1)
         vparams, wparams = fit_predictors(Xs_l, ys_l, overrides)
-        buckets, preds = T.contexts(vals, self.slf, self.sgrp, vparams, wparams)
-        buckets = torch.where(self.sfbkt >= 0, self.sfbkt.to(buckets.dtype), buckets)
-        return vparams, wparams, buckets, T.pack_signed(target - preds)
+        buckets, symbols = WC.wave_contexts(qplane, self.records, vparams, wparams,
+                                            self.channels)
+        return vparams, wparams, buckets, symbols
+
+    def _step_stats(self, qplane, overrides):
+        """The statistics with every HF symbol in its group's fit (the
+        JAX program's step_stats)."""
+        return self._stats(qplane, overrides, strided=False)
+
+    def _grid_stats(self, qplane, overrides):
+        """The statistics with grid mode's subsampled fits (the JAX
+        program's build_grid_encode.stats; FRAVE_FIT_CAP)."""
+        return self._stats(qplane, overrides, strided=True)
 
     def encode_exec(self, pixels, qdiv, overrides=None, tids=None, stages=None):
         """pixels [B, HW, C] uint8 on the device, qdiv [512] int32, tids [B]
@@ -454,16 +485,11 @@ class CodecProgram:
         if stages is not None:
             stages.mark("encode/lift")
         ovr = self._overrides(overrides, B)
-        if self.grid_enc is not None:
-            vparams, wparams, buckets, symbols = self.grid_enc(rows, ovr)
-        else:
-            vparams, wparams, buckets, symbols = self._step_stats(rows, ovr)
+        stats = self.grid_enc or self._step_stats
+        vparams, wparams, buckets, symbols = stats(rows, ovr)  # int32, schedule order
         if stages is not None:
             stages.mark("encode/stats")
 
-        # schedule order, as kernel C reads them
-        buckets = buckets.to(_I32).contiguous()
-        symbols = symbols.to(_I32).contiguous()
         hist = self.histogram(buckets, symbols, B)
         tables = self.tables(hist)
         if stages is not None:

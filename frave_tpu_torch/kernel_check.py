@@ -29,6 +29,7 @@ from .ops import lifting as L
 from .ops import rans_torch as RT
 from .ops import step_decode as SD
 from .ops import tp_decode as TD
+from .ops import wave_ctx as WC
 
 # name -> (wrapper, plain version, CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -62,17 +63,34 @@ KERNELS = {
         "frave_tpu_torch/csrc/rans_step_decode.cu",
         "frave_tpu/codec/pipeline_jax.py:820-868 + frave_tpu/ops/rans_jax.py:555",
     ),
+    "wave_contexts": (
+        WC.wave_contexts,
+        WC.wave_contexts_plain,
+        "frave_tpu_torch/csrc/wave_context.cu",
+        "frave_tpu/codec/grid_decode.py:426-447 (decode_fused_grid :326) + :598 + "
+        "frave_tpu/codec/pipeline_jax.py:469",
+    ),
+    "wave_finish": (
+        WC.wave_finish,
+        WC.wave_finish_plain,
+        "frave_tpu_torch/csrc/wave_context.cu",
+        "frave_tpu/codec/grid_decode.py:401-424 + :448-458 (decode_fused_grid :326)",
+    ),
 }
 # the kernels with a forced cluster size (the others run their launch rule)
 CLUSTERED = ("decode_scan_wave", "decode_steps")
+# the grid wave chain's kernels W and V (timed beside an empty launch's floor)
+WAVE_KERNELS = ("wave_contexts", "wave_finish")
 # the card's memory rate the byte bound is taken at (H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 # cluster sizes kernel 3 can be forced to
 CLUSTERS = (1, 2, 4, 8, 16)
 # problem kinds of decode_scan_wave (kernel B's kind is its transform id,
-# kernel A's a (transform id, qdiv) pair from QDIV_KINDS; the other kernels
-# have one kind, None)
+# kernel A's a (transform id, qdiv) pair from QDIV_KINDS, W's a (mode,
+# kind) pair from WAVE_MODES and DECODE_KINDS, V's one of DECODE_KINDS;
+# the other kernels have one kind, None)
 DECODE_KINDS = ("valid", "garbage")
+WAVE_MODES = ("decode", "encode")
 QDIV_KINDS = ("lossless", "lossy")
 # kernel C's design points: rows loaded ahead, lanes a block
 ENCODE_AHEAD = (4, 8, 16)
@@ -327,14 +345,100 @@ def grid_shapes(h: int, w: int, c: int, nl: int = 0) -> dict:
             "wave": (int(per_wave.max()), c, nl), "waves": int((per_wave > 0).sum())}
 
 
-def program(h: int, w: int, c: int, device):
-    """The cached CodecProgram of an h x w x c image at its default lane
-    count (the main path's)."""
+def program(h: int, w: int, c: int, device, mode: str = "grid"):
+    """The cached CodecProgram of an h x w x c image in `mode` at its
+    default lane count (the main path's)."""
     from .codec.pipeline_torch import get_program
     from .fractal.schedule import default_num_lanes, get_schedule
 
-    nl = default_num_lanes(get_schedule(h, w, mode="grid").num_symbols)
-    return get_program(h, w, nl, c, device)
+    nl = default_num_lanes(get_schedule(h, w, mode=mode).num_symbols)
+    return get_program(h, w, nl, c, device, mode)
+
+
+def largest_wave(prog):
+    """(k0, kw, nl) and the WaveDev of the program's largest grid wave."""
+    from .codec.grid_decode import wave_starts
+
+    wd, k0 = max(zip(prog.waves, wave_starts(prog.waves)), key=lambda t: t[0].kw)
+    return (k0, wd.kw, prog.nl), wd
+
+
+def _wave_plane(rng, prog, kind: str, images: int):
+    """Plane rows [B*C, n_slots + 1] int32 on the program's device, a view
+    of rows 16-byte aligned as the main path's (the zero slot 0):
+    "valid" the quantized coefficients of seeded natural images (plain
+    kernel A, lossless), "garbage" values drawn from [-2^20, 2^20)."""
+    from .testing import natural_image
+
+    B, C, n, dev = max(images, 1), prog.channels, prog.n_slots, prog.device
+    plane = L.zero_plane(B, C, n, dev)
+    if kind == "valid":
+        px = np.stack([natural_image(prog.height, prog.width, C, int(sd)).reshape(-1, C)
+                       for sd in rng.integers(0, 1 << 30, size=B)])
+        q = L.forward_lift_quantize_pixels_plain(
+            _t(px).to(dev), prog.leaf_pix, torch.ones(512, dtype=torch.int32, device=dev),
+            torch.zeros(B, dtype=torch.int32, device=dev))
+        plane[..., :n] = q[..., :n]
+    elif kind == "garbage":
+        vals = rng.integers(-(1 << 20), 1 << 20, size=(B, C, n)).astype(np.int32)
+        plane[..., :n] = _t(vals).to(dev)
+    else:
+        raise ValueError(f"unknown problem kind {kind!r}")
+    return plane.reshape(B * C, n + 1)
+
+
+def wave_problem(rng, shape, kind, device, images: int = 0):
+    """wave_contexts' operands (args, extra) on the program of `shape`
+    (h, w, c[, mode]), kind (mode, problem kind): the plane rows of
+    _wave_plane, the program's records, and "valid" the f16 wire fits of
+    the plane's own symbols, "garbage" parameters drawn from [-4, 4) with
+    a few NaN and inf; the decode mode on the largest wave, the encode
+    mode on every symbol."""
+    mode, pk = kind
+    prog = program(*shape[:3], device, *shape[3:])
+    rows = _wave_plane(rng, prog, pk, images)
+    R, F = rows.shape[0], prog.num_fine
+    if pk == "valid":
+        from .codec.pipeline_torch import fit_predictors
+
+        taps, target, sizes = prog.fit_samples[False]
+        vp, wp = fit_predictors(torch.split(rows[:, taps], sizes, dim=1),
+                                torch.split(rows[:, target], sizes, dim=1), None)
+    else:
+        par = rng.uniform(-4, 4, size=(2, R, F, 6)).astype(np.float32)
+        par.reshape(-1)[rng.choice(par.size, size=max(1, par.size // 50), replace=False)] = (
+            np.float32("nan"))
+        par.reshape(-1)[rng.choice(par.size, size=max(1, par.size // 50), replace=False)] = (
+            np.float32("inf"))
+        vp, wp = (_t(p).to(prog.device) for p in par)
+    if mode == "decode":
+        return (rows, prog.records, vp, wp, prog.channels, largest_wave(prog)[0]), ()
+    if mode != "encode":
+        raise ValueError(f"unknown wave_contexts mode {mode!r}")
+    return (rows, prog.records, vp, wp, prog.channels), ()
+
+
+def finish_problem(rng, shape, kind, device, images: int = 0):
+    """wave_finish's operands (args, extra) on the largest wave of the grid
+    program of `shape`: kernel 3's [1, B, rows, C, NL] symbols ("valid"
+    small, geometric as residuals are; "garbage" uniform over [0, 1024),
+    what kernel 3 decodes from a garbage stream), predictions from
+    [-255, 255], the program's records and zeroed plane rows of the main
+    path's layout."""
+    prog = program(*shape[:3], device, *shape[3:])
+    wave, wd = largest_wave(prog)
+    B, C, nl, dev = max(images, 1), prog.channels, prog.nl, prog.device
+    size = (1, B, wd.rows, C, nl)
+    if kind == "valid":
+        syms = np.minimum(rng.geometric(0.1, size=size) - 1, ALPHABET_SIZE - 1)
+    elif kind == "garbage":
+        syms = rng.integers(0, ALPHABET_SIZE, size=size)
+    else:
+        raise ValueError(f"unknown problem kind {kind!r}")
+    syms = _t(syms.astype(np.int32)).to(dev)
+    preds = _t(rng.integers(-255, 256, size=(B * C, wd.kw)).astype(np.int32)).to(dev)
+    plane = L.zero_plane(B, C, prog.n_slots, dev).reshape(B * C, -1)
+    return (syms, preds, prog.records, wave, plane, C), ()
 
 
 def encode_problem(rng, R: int, C: int, NL: int, images: int = 0):
@@ -355,9 +459,12 @@ def problem(name: str, rng, shape, kind=None, device="cpu", images: int = 0):
     encode_scan and decode_scan_wave (R, C, NL), on the CPU; decode_steps
     (h, w, c, mode) on `device` (step_problem);
     forward_lift_quantize_pixels and dequantize_inverse_lift_pixels
-    (h, w, c) on `device`, the program of that image. `kind` picks
-    decode_scan_wave's problem (DECODE_KINDS), kernel B's transform id
-    (0-3) and kernel A's (transform id, qdiv kind) (default (0, "lossy")).
+    (h, w, c) on `device`, the program of that image; wave_contexts (h, w,
+    c[, mode]) and wave_finish (h, w, c) on `device` (wave_problem,
+    finish_problem). `kind` picks decode_scan_wave's and wave_finish's
+    problem (DECODE_KINDS), W's (mode, problem kind) (default ("decode",
+    "valid")), kernel B's transform id (0-3) and kernel A's (transform id,
+    qdiv kind) (default (0, "lossy")).
     images: 0 for one image without a batch axis, else the batch size."""
     if name == "decode_scan_wave":
         return decode_problem(rng, *shape, kind, images), ()
@@ -369,6 +476,10 @@ def problem(name: str, rng, shape, kind=None, device="cpu", images: int = 0):
     if name == "forward_lift_quantize_pixels":
         kind = kind or (0,)
         return lift_head_problem(rng, program(*shape, device), *kind, images=images)
+    if name == "wave_contexts":
+        return wave_problem(rng, shape, kind or ("decode", "valid"), device, images)
+    if name == "wave_finish":
+        return finish_problem(rng, shape, kind or "valid", device, images)
     if kind is not None:
         raise ValueError(f"{name} has no problem kinds")
     if name == "encode_scan":
@@ -379,7 +490,7 @@ def problem(name: str, rng, shape, kind=None, device="cpu", images: int = 0):
 def _to(a, device):
     if isinstance(a, dict):
         return {k: v.to(device) for k, v in a.items()}
-    return a.to(device) if isinstance(a, (torch.Tensor, SD.StepOperands)) else a
+    return a.to(device) if isinstance(a, (torch.Tensor, SD.StepOperands, WC.Records)) else a
 
 
 def _max_abs_err(a, b) -> int:
@@ -469,6 +580,24 @@ def bytes_moved(name: str, args, out) -> int:
         return (steps.num_symbols * SD.REC_WORDS * 4 + _nbytes(steps.step_map) + taps
                 + _nbytes((x, gptr, vparams, wparams, tabs)) + used * stream.element_size()
                 + _nbytes(out))
+    if name == "wave_contexts":
+        # the records of the symbols, each distinct tap value a row needs
+        # (an absent tap reads the zero slot, no memory traffic) and the
+        # encode mode's targets, the parameters, the outputs
+        plane, records, vparams, wparams = args[:4]
+        wave = args[5] if len(args) > 5 else None
+        k0, kw = (wave[0], wave[1]) if wave is not None else (0, records.num_symbols)
+        rec = records.rec[k0:k0 + kw]
+        taps = rec[:, 1:1 + WC.TAPS]
+        reads = torch.unique(taps[taps < records.n_slots]).numel()
+        if wave is None:
+            reads += kw
+        return (kw * WC.REC_WORDS * 4 + reads * plane.shape[0] * 4
+                + _nbytes((vparams, wparams)) + _nbytes(out))
+    if name == "wave_finish":
+        # the wave's slots, its symbols and predictions, the stored values
+        syms, preds = args[:2]
+        return 3 * preds.numel() * 4 + preds.shape[1] * 4
     if name != "decode_scan_wave":
         return _nbytes(args) + _nbytes(out)
     x, gptr, buckets, active, stream, tabs = args
@@ -500,6 +629,14 @@ def _design_kw(name: str, size) -> dict:
     return {"cluster": size}
 
 
+def _fresh(name: str, args) -> tuple:
+    """The operands of one call: wave_finish stores into its plane, so
+    each compared call gets its own copy."""
+    if name == "wave_finish":
+        return args[:4] + (args[4].clone(),) + args[5:]
+    return args
+
+
 def check_args(name: str, args, extra, device, timed: bool = False, clusters=(0,),
                info=None) -> dict:
     """Kernel `name` vs its plain version on operands (args, extra), moved
@@ -513,17 +650,18 @@ def check_args(name: str, args, extra, device, timed: bool = False, clusters=(0,
     "ms" (device_ms of the wrapper), "wrapper_ms" (median_ms of the
     wrapper, the host's share included), "plain_ms"} (times None unless
     timed; a timed clustered kernel also gives "cluster_ms" {entry: device
-    ms})."""
+    ms}; W and V also "floor_ms", wave_floor_ms)."""
     wrapper, plain, _, _ = KERNELS[name]
     args = tuple(_to(a, device) for a in args)
     extra = tuple(_to(a, device) for a in extra)
     clustered = name in CLUSTERED
     if not clustered and tuple(clusters) != (0,):
         raise ValueError(f"{name} has no cluster size")
-    ref = plain(*args, *extra)
+    ref = plain(*_fresh(name, args), *extra)
     errs = {}
     for size in clusters:
-        errs[size] = _max_abs_err(wrapper(*args, *extra, **_design_kw(name, size)), ref)
+        errs[size] = _max_abs_err(wrapper(*_fresh(name, args), *extra, **_design_kw(name, size)),
+                                  ref)
     ran, plan = None, {}
     if clustered and device.type == "cuda":
         ca = args[-1]["bits"].shape[-1]
@@ -547,12 +685,29 @@ def check_args(name: str, args, extra, device, timed: bool = False, clusters=(0,
         slow = name == "decode_steps"  # a torch loop over thousands of steps
         out["plain_ms"] = median_ms(lambda: plain(*args, *extra), reps=3 if slow else 20,
                                     warmup=1 if slow else 3)
+        if name in WAVE_KERNELS:
+            out["floor_ms"] = wave_floor_ms(name, args, device)
         if clustered:
             out["cluster_ms"] = {
                 size: device_ms(lambda: wrapper(*args, *extra, **_design_kw(name, size)))
                 for size in clusters
             }
     return out
+
+
+def wave_floor_ms(name: str, args, device) -> float:
+    """Device ms of an empty launch of kernel W's or V's grid, block and
+    dynamic shared memory at the operands `args` (check_args'): the floor
+    of one launch of it (ops/wave_ctx.launch_floor)."""
+    if name == "wave_contexts":
+        plane, records, vparams, _, C = args[:5]
+        wave = args[5] if len(args) > 5 else None
+        symbols = records.num_symbols if wave is None else -(-wave[1] // wave[2]) * wave[2]
+        images, fine = plane.shape[0] // C, vparams.shape[1]
+    else:
+        syms, _, _, wave, _, C = args
+        symbols, images, fine = wave[1], syms.shape[1], 1
+    return device_ms(lambda: WC.launch_floor(name, symbols, images, C, fine, device))
 
 
 # kernel D's design sweep: name -> (cluster size, flags, operands' layout);

@@ -142,6 +142,21 @@ def forward_lift_plan(C: int, tiles: int, sms: int, images: int = 1) -> int:
     return best[1]
 
 
+def plane_stride(n_slots: int) -> int:
+    """The int32 row stride of a coefficient plane on the card: n_slots + 1
+    columns (the last the zero slot that absent taps read) rounded up to 16
+    bytes, for kernel B's vector loads."""
+    return (n_slots + 4) // 4 * 4
+
+
+def zero_plane(images: int, channels: int, n_slots: int, device) -> torch.Tensor:
+    """A zeroed coefficient plane [images, channels, n_slots + 1] int32, a
+    view of rows of plane_stride: the layout kernel A writes."""
+    buf = torch.zeros((images, channels, plane_stride(n_slots)), dtype=torch.int32,
+                      device=device)
+    return buf[..., : n_slots + 1]
+
+
 def forward_lift_quantize_pixels(
     pixels: torch.Tensor,
     leaf_pix: torch.Tensor,
@@ -195,7 +210,7 @@ def forward_lift_quantize_pixels(
         sms = torch.cuda.get_device_properties(pixels.device).multi_processor_count
         tpb = forward_lift_plan(C, Tn, sms, B)
     n = Tn * 512
-    stride = (n + 4) // 4 * 4
+    stride = plane_stride(n)
     out = torch.empty((B, C, stride), dtype=torch.int32, device=pixels.device)
     lib = _build.load_library()
     code = lib.frave_fwd_lift_pixels(

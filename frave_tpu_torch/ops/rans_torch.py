@@ -427,7 +427,8 @@ def decode_scan_wave(x, gptr, buckets, active, stream, tabs, cluster: int = 0):
     x [B, C, NL] int64 lane states (u32 values); gptr [B] int64 stream
     positions (a device tensor: nothing is read back to the host); buckets
     [B, R, C, NL] int32 context ids, row-major in that order within an
-    image (the JAX kernel's layout); active [R, NL] bool or uint8 lane
+    image (the JAX kernel's layout, which kernel W writes directly:
+    wave_ctx.wave_contexts); active [R, NL] bool or uint8 lane
     activity (shared by every image and channel); stream [B, W] int32 u16
     words; tabs from decode_tables ([B, C, ...]). Per image, row and
     (channel, lane):

@@ -270,7 +270,9 @@ def tp_decode_row(x, need, gptr, counts, rank, buckets, active, stream, tabs, rt
     t-1's renorm flags), both updated in place; gptr [1] int64, the stream
     position before row t-1's words; counts [n, C] int32, row t-1's renorm
     counts of every rank (row 0: zeros); rank this rank's index; buckets
-    [C, NLl] int32, row t's contexts (None: finish row t-1 alone); active
+    [C, NLl] int32, row t's contexts (None: finish row t-1 alone; in the
+    grid decode row t of the [1, rows, C, NLl] lane window that kernel W
+    writes, wave_ctx.wave_contexts(..., lanes=)); active
     [NLl] bool, row t's lane activity; stream [W] int32 u16 words; tabs
     from rans_torch.decode_tables ([C, ...]). Row t-1's flagged lanes take
     the words stream[gptr + offset] (clamped to [0, W - 1]), offset the

@@ -52,9 +52,9 @@ from ..fractal.geometry import BASE_FRAC_DEPTH, get_geometry
 from ..fractal.schedule import default_num_lanes, get_schedule, grid_row_lane
 from ..images import ColorSpace, ImageMetadata, RasterImage
 from ..ops import rans_torch as RT
-from ..ops import torch_ops as T
-from ..ops.lifting import dequantize_inverse_lift_pixels, forward_lift_quantize_pixels
+from ..ops.lifting import dequantize_inverse_lift_pixels, forward_lift_quantize_pixels, zero_plane
 from ..ops.tp_decode import table_image, tp_decode_row, tp_decode_step
+from ..ops import wave_ctx as WC
 from .mesh import Mesh
 
 _I32 = torch.int32
@@ -279,8 +279,11 @@ class ShardedEncoder:
         sl = slice(s * Kl, (s + 1) * Kl)
         self._sc, self._snbr = put(plan.sc[sl]), put(plan.snbr[sl])
         self._svalid = put(plan.svalid[sl], torch.bool)
-        self._slf = put(plan.slf[sl], torch.bool)
-        self._sgrp, self._sfbkt = put(plan.sgrp[sl]), put(plan.sfbkt[sl])
+        # kernel W's records of this rank's symbols on its analysis plane,
+        # whose last slot reads 0 (padding symbols name it everywhere)
+        zero = plan.own_size + sum(plan.halo[1]) if plan.halo is not None else plan.Tp * plan.N
+        self._records = WC.upload(WC.records_host(plan.sc[sl], plan.snbr[sl], plan.slf[sl],
+                                                  plan.sgrp[sl], plan.sfbkt[sl], zero), zero, dev)
         self._send = ([put(a.reshape(tp, -1)[s]) for a in plan.halo[2]]
                       if plan.halo is not None else [])
         # the fit samples of each group among this rank's symbols
@@ -352,16 +355,14 @@ class ShardedEncoder:
         # analysis of this rank's symbols: taps, fits summed over tp,
         # contexts and symbols, the histogram summed over tp
         qpad = self.planes(pixels, qdiv, tids_dev)
-        vals = qpad[:, self._snbr]  # [Bl * C, Kl, 6]
-        target = qpad[:, self._sc]
         ovr = prog._overrides(opts.prediction_overrides(C), Bl)
         with mesh.phase("fit"):
             vparams, wparams = PT.fit_predictors(
-                [vals[:, i] for i in self._fit_idx], [target[:, i] for i in self._fit_idx], ovr,
+                [qpad[:, self._snbr[i]] for i in self._fit_idx],
+                [qpad[:, self._sc[i]] for i in self._fit_idx], ovr,
                 reduce=lambda G, b: mesh.sum_many(G, b, axis="tp"))
-        buckets, preds = T.contexts(vals, self._slf, self._sgrp, vparams, wparams)
-        buckets = torch.where(self._sfbkt >= 0, self._sfbkt.to(buckets.dtype), buckets)
-        symbols = torch.where(self._svalid, T.pack_signed(target - preds), 0).to(_I64)
+        buckets, symbols = WC.wave_contexts(qpad, self._records, vparams, wparams, C)
+        symbols = torch.where(self._svalid, symbols, 0).to(_I64)
         buckets = torch.where(self._svalid, buckets, 0).to(_I64)
         hist = prog.histogram(buckets, symbols, Bl, valid=self._svalid)
         with mesh.phase("hist"):
@@ -467,39 +468,35 @@ class TPShardedDecoder:
                                                             self.channels))
 
     def _grid(self, prog, x, stream, vparams, wparams, tabs, rtabs, image, lo, local):
-        """The dense-grid decode with lanes split: per row one kernel 3T
-        launch and the [n, C] count gather, per wave one values gather."""
+        """The dense-grid decode with lanes split: per wave one kernel W
+        launch (the wave's contexts on every rank, the buckets of this
+        rank's lanes in kernel 3T's [rows, C, NL/n] layout), per row one
+        kernel 3T launch and the [n, C] count gather, per wave one symbols
+        gather and one kernel V launch (every rank stores the whole wave)."""
         mesh, C, nl, dev = self.mesh, self.channels, prog.nl, x.device
-        for wd in prog.waves:  # the replicated scatter stays in the plane
-            if wd.kw and int(wd.wp.slot_grid.reshape(-1)[wd.wp.active.reshape(-1)].max()) >= prog.n_slots:
-                raise AssertionError("a wave's slot lies past the coefficient plane")
         st = {"x": x, "need": torch.zeros(x.shape, dtype=torch.bool, device=dev),
               "gptr": torch.zeros((1,), dtype=_I64, device=dev),
               "counts": torch.zeros((mesh.size, C), dtype=_I32, device=dev)}
-        qplane = torch.zeros((C, prog.n_slots), dtype=_I32, device=dev)
-
-        def scan_wave(wd, buckets, preds):
-            if wd.rows == 0:
-                return preds.new_zeros((C, 0)).to(_I32)
-            pad = wd.rows * nl - wd.kw
-            win = slice(lo, lo + local)
-            bk = torch.nn.functional.pad(buckets.to(_I32), (0, pad)).reshape(C, wd.rows, nl)[..., win]
-            pr = torch.nn.functional.pad(preds.to(_I32), (0, pad)).reshape(C, wd.rows, nl)[..., win]
-            act = wd.active_rows[:, win]
+        qplane = zero_plane(1, C, prog.n_slots, dev)[0]
+        win = slice(lo, lo + local)
+        for wd, k0 in zip(prog.waves, GD.wave_starts(prog.waves)):
+            if wd.kw == 0:
+                continue
+            wave = (k0, wd.kw, nl)
+            bk, preds = WC.wave_contexts(qplane, prog.records, vparams, wparams, C, wave,
+                                      lanes=(lo, local))  # [1, rows, C, NL/n]
             syms = []
             for t in range(wd.rows):
                 sym, cnt, st["gptr"] = tp_decode_row(
-                    st["x"], st["need"], st["gptr"], st["counts"], mesh.rank,
-                    bk[:, t].contiguous(), act[t].contiguous(), stream, tabs, rtabs, image)
+                    st["x"], st["need"], st["gptr"], st["counts"], mesh.rank, bk[0, t],
+                    wd.active_rows[t, win], stream, tabs, rtabs, image)
                 with mesh.phase("row"):
                     st["counts"] = mesh.all_gather(cnt, "world")  # THE per-row collective
                 syms.append(sym)
-            vals = torch.where(act[None], T.unpack_signed(torch.stack(syms, 1)) + pr, 0).to(_I32)
             with mesh.phase("wave"):
-                v_all = mesh.all_gather(vals, "world")  # [n, C, rows, NLl]
-            return v_all.permute(1, 2, 0, 3).reshape(C, wd.rows * nl)[:, : wd.kw]
-
-        GD.wave_chain(prog.waves, vparams, wparams, qplane, scan_wave)
+                s_all = mesh.all_gather(torch.stack(syms, 1), "world")  # [n, C, rows, NL/n]
+            WC.wave_finish(s_all.permute(0, 2, 1, 3)[:, None], preds, prog.records, wave, qplane,
+                           C)
         # the last row's renorm: the final lane states
         _, _, st["gptr"] = tp_decode_row(st["x"], st["need"], st["gptr"], st["counts"],
                                          mesh.rank, None, None, stream, tabs, rtabs, image)

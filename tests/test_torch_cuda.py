@@ -267,3 +267,48 @@ def test_cuda_decode_steps_refuses_what_it_cannot_run():
     with pytest.raises(RuntimeError):
         SD.decode_steps(*args, *extra, cluster=2, flags=SD.FORCE_BLOCK)
     assert SD.decode_steps.launches == before
+
+
+# kernels W and V: grid programs (h, w, c) with the images of a batch, and
+# W's statistics on step-tensor programs (h, w, c, mode)
+WAVE_SHAPES = [((64, 64, 1), 0), ((96, 80, 3), 2), ((256, 256, 1), 3), ((512, 768, 3), 0)]
+STATS_SHAPES = [((64, 64, 1, "parity"), 2), ((96, 80, 3, "parallel"), 0), ((16, 16, 3, "grid"), 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", kernel_check.WAVE_KERNELS)
+def test_cuda_wave_kernels_match_plain(name):
+    """Kernel W in both modes (a program's largest decode wave, its
+    statistics) and kernel V (the largest wave's values into the plane)
+    against their plain versions on a program's records, on coefficients
+    and on garbage, one image and batches: bit-equal, one launch a call;
+    W also with the lanes of the tp decoder's windows, and its statistics
+    on step-tensor programs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    from frave_tpu_torch.ops import wave_ctx as WC
+
+    dev = torch.device("cuda")
+    wrapper = kernel_check.KERNELS[name][0]
+    cases = [(sh, im) for sh, im in WAVE_SHAPES]
+    if name == "wave_contexts":
+        kinds = [(m, k) for m in kernel_check.WAVE_MODES for k in kernel_check.DECODE_KINDS]
+        cases += STATS_SHAPES
+    else:
+        kinds = kernel_check.DECODE_KINDS
+    for shape, images in cases:
+        for kind in kinds:
+            if len(shape) == 4 and kind[0] == "decode":
+                continue
+            before = wrapper.launches
+            res = kernel_check.check(name, shape, dev, kind=kind, images=images)
+            assert res["max_abs_err"] == 0, (shape, kind, res["errs"])
+            assert wrapper.launches == before + 1, (shape, kind)
+    if name == "wave_contexts":
+        args, _ = kernel_check.problem(name, np.random.default_rng(3), (512, 768, 3),
+                                       ("decode", "valid"), dev)
+        nl = args[5][2]
+        for lo, width in ((0, nl // 2), (nl // 2, nl // 2), (nl // 4, nl // 4)):
+            got = WC.wave_contexts(*args, lanes=(lo, width))
+            ref = WC.wave_contexts_plain(*args, lanes=(lo, width))
+            assert all(bool((a == b).all()) for a, b in zip(got, ref)), (lo, width)
