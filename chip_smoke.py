@@ -38,7 +38,11 @@ script exits nonzero without printing a result:
                wrapper's and the plain version's CUDA-event medians per
                call; the byte bound of each (W and V also beside an empty
                launch of their grid); the empty cross-block exchange loop
-               at 2, 4, 8 and 16 blocks;
+               at 2, 4, 8 and 16 blocks; V in schedule and in slot order,
+               each bit-equal to its plain version, on waves from the
+               smallest to the largest at 2048x2048 RGB and at B = 64
+               (kernel_check.finish_orders_ms), with its store sectors a
+               warp in both orders;
   3. main    — the port's public encode -> decode (seeded
                natural-statistics images), five paths (a-e), each with the
                launch counts zeroed just before it and read just after it
@@ -202,6 +206,7 @@ from frave_tpu_torch.ops import _build
 from frave_tpu_torch.ops import lifting as L
 from frave_tpu_torch.ops import rans_torch as RT
 from frave_tpu_torch.ops import step_decode as SD
+from frave_tpu_torch.ops import wave_ctx as WC
 from frave_tpu_torch.testing import REF_IMAGES, natural_image
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -833,6 +838,21 @@ def d_check(label: str, cis, dev, kind: str = "valid", timed: bool = True,
                   f"variant, cluster {plan.cluster}, {plan.per} a thread, prefetch "
                   f"{plan.prefetch}; bit-equal)")
     return r
+
+
+def wave_designs(dev) -> None:
+    """Kernel V's two walks of a wave (schedule and slot order), each
+    bit-equal to its plain version, on waves from the smallest to the
+    largest at 2048x2048 RGB and at B = 64 256x256 gray, and the store
+    sectors a warp of its largest wave touches either way."""
+    for label, shape, images in (("2048x2048 RGB", (2048, 2048, 3), 0),
+                                 (f"{BATCH}x 256x256 gray", (*GRAY, 1), BATCH)):
+        rows = kernel_check.finish_orders_ms(shape, dev, images, count=4)
+        print(f"kernel wave_finish {label} device ms by walk (rule: slot order from "
+              f"{WC.SLOT_ORDER_MIN} pairs): " + json.dumps(rows))
+        sectors = kernel_check.finish_sectors(kernel_check.program(*shape, dev))
+        print(f"kernel wave_finish {label} largest wave: distinct 32-byte sectors a warp "
+              f"touches {json.dumps(sectors)}")
 
 
 def w_stats_check(label: str, shape, images: int, dev, checks: dict) -> None:
@@ -1671,6 +1691,7 @@ def main() -> int:
         print(f"kernel encode_scan {(R, C, NL)} device ms by (rows ahead, lanes a block), "
               f"each bit-equal to the plain version (rule: {rule}): "
               + json.dumps({f"{a},{t}": round(ms, 4) for (a, t), ms in sweep.items()}))
+    wave_designs(dev)
     floor = exchange_floor(dev)
     torch.cuda.synchronize(dev)
     print(f"phase kernels done at {time.perf_counter() - t_start:.1f} s")

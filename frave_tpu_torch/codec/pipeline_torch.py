@@ -93,7 +93,7 @@ from ..ops import wave_ctx as WC
 from ..ops.step_decode import decode_steps
 from ..profiling import stage_timer
 from .channel_transform import choose_transform
-from .grid_decode import build_grid_decode, fit_stride, get_wave_devs, wire_tables
+from .grid_decode import build_grid_decode, fit_stride, get_wave_devs, wave_starts, wire_tables
 from .container import deserialize, serialize
 from .options import EncoderOptions, quantization_matrix
 
@@ -337,9 +337,8 @@ class CodecProgram:
         self.slf = sched.sched_lf.astype(bool)
         self.sgrp = sched.sched_group.astype(np.int64)
         self.sfbkt = sched.sched_fbkt.astype(np.int64)
-        self.records = WC.upload(
-            WC.records_host(self.sc, sched.sched_nbr, self.slf, self.sgrp, self.sfbkt, n_slots),
-            n_slots, dev)
+        rec = WC.records_host(self.sc, sched.sched_nbr, self.slf, self.sgrp, self.sfbkt, n_slots)
+        self.records = WC.upload(rec, n_slots, dev)
         self.lap = put(_LAPLACE_GRID_ROWS)  # [NUM_SCALES, 7, 1024]
         self.glog2 = put(_GRID_LOG2, _F32)
         self.gzero = put(_LAPLACE_GRID_ROWS == 0, _F32)
@@ -382,6 +381,9 @@ class CodecProgram:
                 pass  # tiny shapes: the step tensors below decode the same wire
         self.waves = waves
         if waves is not None:
+            # kernel V walks each wave in slot order
+            self.records = WC.with_slot_order(
+                self.records, rec, [(k0, wd.kw) for wd, k0 in zip(waves, wave_starts(waves))])
             self.decode_fn = build_grid_decode(self, geo, waves)
             genc = os.environ.get("FRAVE_GRID_ENC", "1")
             if genc == "force" or (genc == "1" and K >= GRID_ENC_MIN_K):

@@ -423,8 +423,8 @@ def finish_problem(rng, shape, kind, device, images: int = 0):
     program of `shape`: kernel 3's [1, B, rows, C, NL] symbols ("valid"
     small, geometric as residuals are; "garbage" uniform over [0, 1024),
     what kernel 3 decodes from a garbage stream), predictions from
-    [-255, 255], the program's records and zeroed plane rows of the main
-    path's layout."""
+    [-255, 255], the program's records (with V's slot order) and zeroed
+    plane rows of the main path's layout."""
     prog = program(*shape[:3], device, *shape[3:])
     wave, wd = largest_wave(prog)
     B, C, nl, dev = max(images, 1), prog.channels, prog.nl, prog.device
@@ -696,18 +696,73 @@ def check_args(name: str, args, extra, device, timed: bool = False, clusters=(0,
 
 
 def wave_floor_ms(name: str, args, device) -> float:
-    """Device ms of an empty launch of kernel W's or V's grid, block and
-    dynamic shared memory at the operands `args` (check_args'): the floor
-    of one launch of it (ops/wave_ctx.launch_floor)."""
+    """Device ms of an empty launch of kernel W's or V's grid at the
+    operands `args` (check_args'): the launch plan's persistent blocks
+    with the kernel's shared memory, the floor of one launch of it
+    (ops/wave_ctx.launch_floor)."""
     if name == "wave_contexts":
-        plane, records, vparams, _, C = args[:5]
+        plane, records, _, _, C = args[:5]
         wave = args[5] if len(args) > 5 else None
         symbols = records.num_symbols if wave is None else -(-wave[1] // wave[2]) * wave[2]
-        images, fine = plane.shape[0] // C, vparams.shape[1]
+        images, encode = plane.shape[0] // C, wave is None
     else:
         syms, _, _, wave, _, C = args
-        symbols, images, fine = wave[1], syms.shape[1], 1
-    return device_ms(lambda: WC.launch_floor(name, symbols, images, C, fine, device))
+        symbols, images, encode = wave[1], syms.shape[1], False
+    return device_ms(lambda: WC.launch_floor(name, symbols, images, C, device, encode))
+
+
+def finish_orders_ms(shape, device, images: int = 0, count: int = 6) -> list:
+    """Kernel V walking a wave in schedule order and in slot order on
+    `count` waves of the grid program of `shape` spread over its wave
+    sizes (the smallest to the largest), valid symbols of `images` images
+    (0: one): [{"pairs": the wave's (symbol, image) pairs, "schedule": ms,
+    "slot": ms}] (device_ms), what wave_ctx.SLOT_ORDER_MIN is set from.
+    Raises unless both walks are bit-equal to the plain version."""
+    from .codec.grid_decode import wave_starts
+
+    prog = program(*shape, device)
+    B, C, nl = max(images, 1), prog.channels, prog.nl
+    waves = sorted((wd.kw, k0, wd.rows) for wd, k0 in zip(prog.waves, wave_starts(prog.waves))
+                   if wd.kw)
+    pick = sorted({round(i * (len(waves) - 1) / max(count - 1, 1)) for i in range(count)})
+    rng = np.random.default_rng(11)
+    out = []
+    for kw, k0, rows in (waves[i] for i in pick):
+        syms = np.minimum(rng.geometric(0.1, size=(1, B, rows, C, nl)) - 1, ALPHABET_SIZE - 1)
+        syms = _t(syms.astype(np.int32)).to(device)
+        preds = _t(rng.integers(-255, 256, size=(B * C, kw)).astype(np.int32)).to(device)
+        plane = L.zero_plane(B, C, prog.n_slots, device).reshape(B * C, -1)
+        args = (syms, preds, prog.records, (k0, kw, nl), plane, C)
+        ref = WC.wave_finish_plain(*args[:4], plane.clone(), C)
+        row = {"pairs": kw * B}
+        for walk, slot in (("schedule", False), ("slot", True)):
+            got = WC.wave_finish(*args[:4], plane.clone(), C, slot_order=slot)
+            if not bool((got == ref).all()):
+                raise AssertionError(f"wave_finish in {walk} order disagrees on wave {k0}")
+            row[walk] = device_ms(lambda s=slot: WC.wave_finish(*args, slot_order=s))
+        out.append(row)
+    return out
+
+
+def finish_sectors(prog) -> dict:
+    """The distinct 32-byte sectors a warp's 32 stores of V touch in a
+    plane row, on average over the warps of the program's largest wave
+    (counted from the records on the host), walking the wave in schedule
+    order ("schedule") and in slot order ("slot order"); and, in slot
+    order, the sectors of the warp's prediction loads (schedule order
+    reads 4 consecutive sectors)."""
+    (k0, kw, _), _ = largest_wave(prog)
+    slots = prog.records.slots[k0:k0 + kw].cpu().numpy().astype(np.int64)
+    order = np.argsort(slots, kind="stable")
+
+    def per_warp(idx):
+        n = -(-idx.size // 32) * 32
+        pad = np.concatenate([idx, np.full(n - idx.size, idx[-1])]).reshape(-1, 32) // 8
+        srt = np.sort(pad, axis=1)
+        return float(np.mean(1 + (np.diff(srt, axis=1) != 0).sum(axis=1)))
+
+    return {"schedule": per_warp(slots), "slot order": per_warp(slots[order]),
+            "slot order preds": per_warp(order), "kw": int(kw)}
 
 
 # kernel D's design sweep: name -> (cluster size, flags, operands' layout);

@@ -61,9 +61,10 @@ _SIGNATURES = {
     "frave_tp_decode_step": [_P] * 14 + [_I] * 10 + [_L] * 2 + [_I] * 3 + [_P],
     "frave_tp_fits": [_I, _I, _I, _L, ctypes.POINTER(_I)],
     "frave_tp_empty": [_I, _I, _L, _P],
-    "frave_wave_contexts": [_P, _L] + [_P] * 6 + [_I] * 11 + [_P],
-    "frave_wave_finish": [_P] + [_L] * 4 + [_I] + [_P] * 3 + [_L] + [_I] * 5 + [_P],
-    "frave_wave_empty": [_L, _I, _L, _P],
+    "frave_wave_contexts": [_P, _L] + [_P] * 6 + [_I] * 13 + [_P],
+    "frave_wave_finish": [_P] + [_L] * 4 + [_I] + [_P] * 4 + [_L] + [_I] * 7 + [_P],
+    "frave_wave_occupancy": [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    "frave_wave_empty": [_I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

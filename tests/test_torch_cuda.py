@@ -269,9 +269,12 @@ def test_cuda_decode_steps_refuses_what_it_cannot_run():
     assert SD.decode_steps.launches == before
 
 
-# kernels W and V: grid programs (h, w, c) with the images of a batch, and
+# kernels W and V: grid programs (h, w, c) with the images of a batch
+# (RGB at B = 4 and gray at B = 64: the most image groups a block; at
+# 768x512 RGB B = 4 more tiles than the persistent grid has blocks), and
 # W's statistics on step-tensor programs (h, w, c, mode)
-WAVE_SHAPES = [((64, 64, 1), 0), ((96, 80, 3), 2), ((256, 256, 1), 3), ((512, 768, 3), 0)]
+WAVE_SHAPES = [((64, 64, 1), 0), ((96, 80, 3), 2), ((256, 256, 1), 3), ((512, 768, 3), 0),
+               ((512, 768, 3), 4), ((256, 256, 1), 64)]
 STATS_SHAPES = [((64, 64, 1, "parity"), 2), ((96, 80, 3, "parallel"), 0), ((16, 16, 3, "grid"), 0)]
 
 
@@ -283,9 +286,13 @@ def test_cuda_wave_kernels_match_plain(name):
     against their plain versions on a program's records, on coefficients
     and on garbage, one image and batches: bit-equal, one launch a call;
     W also with the lanes of the tp decoder's windows, and its statistics
-    on step-tensor programs."""
+    on step-tensor programs; V over the tp decoder's parts and in schedule
+    order (its rule walks slot order); both on every wave of a small
+    program (waves smaller than a tile; V in both orders), each image with
+    its own plane and parameters."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    from frave_tpu_torch.codec import grid_decode as GD
     from frave_tpu_torch.ops import wave_ctx as WC
 
     dev = torch.device("cuda")
@@ -304,6 +311,10 @@ def test_cuda_wave_kernels_match_plain(name):
             res = kernel_check.check(name, shape, dev, kind=kind, images=images)
             assert res["max_abs_err"] == 0, (shape, kind, res["errs"])
             assert wrapper.launches == before + 1, (shape, kind)
+    prog = kernel_check.program(512, 768, 3, dev)
+    (k0, kw, nl), wd = kernel_check.largest_wave(prog)
+    plan = WC.launch_plan(name, 4, wd.rows * nl if name == "wave_contexts" else kw, 3, dev)
+    assert plan.tiles > plan.blocks, plan  # the B = 4 case above walks tiles
     if name == "wave_contexts":
         args, _ = kernel_check.problem(name, np.random.default_rng(3), (512, 768, 3),
                                        ("decode", "valid"), dev)
@@ -312,3 +323,45 @@ def test_cuda_wave_kernels_match_plain(name):
             got = WC.wave_contexts(*args, lanes=(lo, width))
             ref = WC.wave_contexts_plain(*args, lanes=(lo, width))
             assert all(bool((a == b).all()) for a, b in zip(got, ref)), (lo, width)
+    else:
+        # the tp decoder's gather: 2 ranks' lanes as parts, one image
+        args, _ = kernel_check.problem(name, np.random.default_rng(3), (512, 768, 3), "garbage",
+                                       dev)
+        syms, preds, records, wave, plane, C = args
+        _, _, rows, _, nl = syms.shape
+        parts = syms[0].reshape(rows, C, 2, nl // 2).permute(2, 0, 1, 3)[:, None]
+        got = WC.wave_finish(parts, preds, records, wave, plane.clone(), C)
+        ref = WC.wave_finish_plain(syms, preds, records, wave, plane.clone(), C)
+        assert bool((got == ref).all())
+        got = WC.wave_finish(syms, preds, records, wave, plane.clone(), C, slot_order=False)
+        assert bool((got == ref).all())  # schedule order
+    # every wave of a small program, one image and three: waves with fewer
+    # symbols than one tile among them
+    rng = np.random.default_rng(5)
+    for images in (0, 3):
+        p = kernel_check.program(64, 64, 1, dev)
+        rows_ = kernel_check._wave_plane(rng, p, "garbage", images)
+        B = rows_.shape[0]
+        vp, wp = (torch.from_numpy(rng.uniform(-4, 4, size=(B, p.num_fine, 6)).astype(
+            np.float32)).to(dev) for _ in range(2))
+        small = 0
+        for wv, k0_ in zip(p.waves, GD.wave_starts(p.waves)):
+            if wv.kw == 0:
+                continue
+            small += wv.kw < WC.BLOCK // WC.plan_rule(max(images, 1), wv.kw, 1, 1).groups
+            wave = (k0_, wv.kw, p.nl)
+            if name == "wave_contexts":
+                got = WC.wave_contexts(rows_, p.records, vp, wp, 1, wave)
+                ref = WC.wave_contexts_plain(rows_, p.records, vp, wp, 1, wave)
+                assert all(bool((a == b).all()) for a, b in zip(got, ref)), wave
+            else:
+                sy = torch.from_numpy(rng.integers(0, 1024, size=(1, B, wv.rows, 1, p.nl)).astype(
+                    np.int32)).to(dev)
+                pr = torch.from_numpy(rng.integers(-255, 256, size=(B, wv.kw)).astype(
+                    np.int32)).to(dev)
+                ref = WC.wave_finish_plain(sy, pr, p.records, wave, rows_.clone(), 1)
+                for slot_order in (None, True):  # the rule (schedule order here), slot order
+                    got = WC.wave_finish(sy, pr, p.records, wave, rows_.clone(), 1,
+                                         slot_order=slot_order)
+                    assert bool((got == ref).all()), (wave, slot_order)
+        assert small, "no wave smaller than a tile"

@@ -350,3 +350,64 @@ def test_records_refuse_slots_past_the_plane():
     vp = torch.zeros((1, F, 6), dtype=torch.float32)
     with pytest.raises(ValueError):
         WC.wave_contexts(torch.zeros((1, n), dtype=torch.int32), records, vp, vp, 1)
+
+
+@pytest.mark.parametrize("h,w,c,seed", SHAPES)
+def test_slot_order_matches_records_and_dense_scatter(h, w, c, seed):
+    """V's slot order (slot_order_host, attached to a grid program's
+    records by from_host) holds each wave of records_host as a permutation
+    sorted by slot, and the plain V through it (the rule from
+    SLOT_ORDER_MIN pairs on) stores what frave_tpu's dense chain scatters
+    (its scatter_coefs at the wave's wslot) and what schedule order
+    stores."""
+    nl = default_num_lanes(get_schedule(h, w, mode="grid").num_symbols)
+    prog = PT.get_program(h, w, nl, c, "cpu")
+    starts = GD.wave_starts(prog.waves)
+    rec = prog.records.rec.numpy()
+    order = WC.slot_order_host(rec, [(k0, wd.kw) for wd, k0 in zip(prog.waves, starts)])
+    records = prog.records  # from_host attaches the order (V's rule walks it)
+    np.testing.assert_array_equal(records.order.numpy(), order)
+    waves_j = GDJ.get_wave_devs(get_geometry_j(h, w, 9), get_schedule_j(h, w, mode="grid"), nl,
+                                prog.n_slots)
+    rng = np.random.default_rng(seed)
+    B = 2
+    for wd, wj, k0 in zip(prog.waves, waves_j, starts):
+        q, slot = order[k0:k0 + wd.kw, 0], order[k0:k0 + wd.kw, 1]
+        np.testing.assert_array_equal(np.sort(q), np.arange(wd.kw))
+        np.testing.assert_array_equal(slot, rec[k0 + q, 0])
+        assert (np.diff(slot) > 0).all()
+        if wd.kw == 0:
+            continue
+        syms = torch.from_numpy(rng.integers(0, 1024, size=(1, B, wd.rows, c, nl)).astype(np.int32))
+        preds = torch.from_numpy(rng.integers(-255, 256, size=(B * c, wd.kw)).astype(np.int32))
+        got = torch.zeros((B * c, prog.n_slots + 1), dtype=torch.int32)
+        WC.wave_finish(syms, preds, records, (k0, wd.kw, nl), got, c, slot_order=True)
+        plain = torch.zeros_like(got)
+        WC.wave_finish(syms, preds, records, (k0, wd.kw, nl), plain, c, slot_order=False)
+        np.testing.assert_array_equal(got.numpy(), plain.numpy())
+        vals = syms[0].permute(0, 2, 1, 3).reshape(B * c, wd.rows * nl)[:, :wd.kw]
+        vals = (T.unpack_signed(vals) + preds).to(torch.int32).numpy()
+        want = jnp.zeros((B * c, prog.n_slots + 1), jnp.int32).at[:, wj.wslot].set(
+            jnp.asarray(vals), unique_indices=True)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("images,symbols", [(1, 1), (1, 2_098_176), (3, 300), (4, 32_896),
+                                            (64, 32_896), (64, 5), (7, 1000)])
+def test_launch_plan_covers_every_symbol_and_image_once(images, symbols):
+    """W's and V's launch rule: a power-of-two image group count up to the
+    batch (at most MAX_GROUPS), tiles of BLOCK / groups symbols that cover
+    the symbols, no more blocks than are resident or than there are tiles.
+    That the kernels' walk of it takes every (symbol, image) pair once is
+    the card-only tests' (tests/test_torch_cuda.py: more tiles than
+    blocks, waves smaller than a tile)."""
+    sms, per_sm = 132, 3
+    plan = WC.plan_rule(images, symbols, sms, per_sm)
+    assert plan.groups & (plan.groups - 1) == 0 and plan.groups <= min(images, WC.MAX_GROUPS)
+    assert plan.groups * 2 > min(images, WC.MAX_GROUPS)
+    assert plan.tile * plan.groups == WC.BLOCK
+    assert plan.tiles == -(-symbols // plan.tile)
+    assert plan.blocks == min(plan.tiles, sms * per_sm)
+    assert (plan.tiles - 1) * plan.tile < symbols <= plan.tiles * plan.tile
+    with pytest.raises(ValueError):
+        WC.plan_rule(images, 0, sms, per_sm)
