@@ -1,0 +1,7 @@
+"""One decode request: host wall less the program's stages, median (ms)."""
+
+from portbench.core import readers
+
+
+def read(ctx):
+    return readers.driver_ms(ctx, "decode")

@@ -1,0 +1,7 @@
+"""The share of the traced decode requests in which nothing ran on the device (%)."""
+
+from portbench.core import readers
+
+
+def read(ctx):
+    return readers.idle_pct(ctx, "decode")
