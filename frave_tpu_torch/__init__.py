@@ -56,9 +56,11 @@ The command line (``cli/``), with the JAX package's subcommands::
 
 Observability: ``metrics.get_metrics()`` holds what an encode records
 (``encode/bpp``, ``encode/mean_abs_residual_ch{c}``, the per-context
-entropies under ``verbose``) and the stage timers'; ``profiling.trace(dir)``
-writes a torch.profiler Chrome trace of a region, ``profiling.stage_timer``
-and ``profiling.annotate`` time and name stages.
+entropies under ``verbose``) and a ``StageTimes``' stages;
+``profiling.trace(dir)`` writes a torch.profiler Chrome trace of a region
+(every thread), in which the drivers' host steps are spans named
+``frave.<side>.<step>`` (``profiling.annotate``: on only while a
+profiler records).
 """
 
 __version__ = "0.1.0"

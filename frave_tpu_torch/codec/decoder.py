@@ -6,6 +6,7 @@ the PyTorch pipeline; "native" decodes with the C++ frif codec
 from __future__ import annotations
 
 from ..images import ColorSpace, ImageMetadata, RasterImage
+from ..profiling import annotate
 from .container import deserialize
 from .encoder import select_backend
 from .pipeline_torch import decode_pipeline_torch
@@ -29,7 +30,9 @@ class FRIDecoder:
                 colorspace=ColorSpace.LUMA if out.shape[2] == 1 else ColorSpace.RGB,
             )
             return RasterImage(metadata=meta, data=out)
-        return decode_pipeline_torch(deserialize(data), self.device)
+        with annotate("frave.container.parse"):
+            ci = deserialize(data)
+        return decode_pipeline_torch(ci, self.device)
 
 
 def decode(blob: bytes, device="cuda", backend: str = "auto") -> RasterImage:

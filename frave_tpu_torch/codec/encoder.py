@@ -10,6 +10,7 @@ from typing import Optional, Union
 import numpy as np
 
 from ..images import ColorSpace, RasterImage
+from ..profiling import annotate
 from .container import serialize
 from .options import EncoderOptions
 from .pipeline_torch import encode_pipeline_torch
@@ -66,7 +67,9 @@ class FRIEncoder:
                                        opts.quality.name == "LOSSLESS")
             return frif_encode_native(image.data, quality=opts.quality.value, transform=tid,
                                       num_lanes=opts.num_lanes or 0, mode=opts.mode)
-        return serialize(encode_pipeline_torch(image, opts, self.device))
+        ci = encode_pipeline_torch(image, opts, self.device)
+        with annotate("frave.container.serialize"):
+            return serialize(ci)
 
     def _encode_trial(self, image: RasterImage, backend: str) -> bytes:
         """color_transform="trial" (frave_tpu FRIEncoder._encode_trial):

@@ -48,9 +48,15 @@ per decode batch).
 
 Metrics (metrics.get_metrics()), as the JAX pipeline records them:
 encode/bpp and encode/mean_abs_residual_ch{c} an image; the context
-entropies (and, under emit_coefficients, histograms) on request; the
-_stream drivers' encode|decode/dispatch|finish wall times; and the
+entropies (and, under emit_coefficients, histograms) on request; and the
 stage times of a StageTimes a caller passes.
+
+Spans (profiling.annotate; recorded only while a torch.profiler session
+is): one a batch or call for each host step, frave.encode.{dispatch,
+transform, upload, launch, finish, unpack, reencode},
+frave.decode.{dispatch, assemble, upload, launch, finish, wrap},
+frave.fetch (each blocking fetch), frave.container.{serialize, parse}
+and frave.stream.wait (the stream's main thread waiting on a worker).
 """
 
 from __future__ import annotations
@@ -91,7 +97,7 @@ from ..ops.rans_torch import (
 from ..ops import step_decode as SD
 from ..ops import wave_ctx as WC
 from ..ops.step_decode import decode_steps
-from ..profiling import stage_timer
+from ..profiling import annotate
 from .channel_transform import choose_transform
 from .grid_decode import build_grid_decode, fit_stride, get_wave_devs, wave_starts, wire_tables
 from .container import deserialize, serialize
@@ -712,21 +718,22 @@ def _fetch(t, ready):
     copies alone: on a side stream of the device that waits for `ready`,
     into pinned memory, so work queued after `ready` (the next batch) keeps
     the device busy meanwhile. Safe from worker threads."""
-    ts = (t,) if isinstance(t, torch.Tensor) else tuple(t)
-    if ts[0].device.type == "cpu":
-        hosts = [x.numpy() for x in ts]
-    else:
-        side = torch.cuda.Stream(device=ts[0].device)
-        side.wait_event(ready)
-        with torch.cuda.stream(side):
-            hosts = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in ts]
-            for h, x in zip(hosts, ts):
-                h.copy_(x, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(side)
-        done.synchronize()
-        hosts = [h.numpy() for h in hosts]
-    return hosts[0] if isinstance(t, torch.Tensor) else hosts
+    with annotate("frave.fetch"):
+        ts = (t,) if isinstance(t, torch.Tensor) else tuple(t)
+        if ts[0].device.type == "cpu":
+            hosts = [x.numpy() for x in ts]
+        else:
+            side = torch.cuda.Stream(device=ts[0].device)
+            side.wait_event(ready)
+            with torch.cuda.stream(side):
+                hosts = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in ts]
+                for h, x in zip(hosts, ts):
+                    h.copy_(x, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(side)
+            done.synchronize()
+            hosts = [h.numpy() for h in hosts]
+        return hosts[0] if isinstance(t, torch.Tensor) else hosts
 
 
 # ---------------------------------------------------------------- encode
@@ -756,34 +763,39 @@ def _encode_dispatch(images: List[RasterImage], opts: EncoderOptions, device,
     """Upload + queue the fused encode of one same-shape batch without
     waiting for it: the host resolves each image's transform (`tids`
     forces them, one id 0-3 an RGB image), the device does the rest."""
-    if not images:
-        raise ValueError("an encode batch needs at least one image")
-    meta = images[0].metadata
-    for im in images:
-        if im.metadata != meta:
-            raise ValueError("batch images must share shape and colorspace")
-    C = meta.num_channels
-    lossless = opts.quality.name == "LOSSLESS"
-    if meta.colorspace != ColorSpace.RGB:
-        tids = [0] * len(images)
-    elif tids is None:
-        tids = [choose_transform(im.data, opts.color_transform, lossless) for im in images]
-    elif len(tids) != len(images) or not all(0 <= t <= 3 for t in tids):
-        raise ValueError("tids must give one transform id 0-3 an image")
-    sched = get_schedule(meta.height, meta.width, mode=opts.mode)
-    nl = opts.num_lanes or default_num_lanes(sched.num_symbols)
-    prog = get_program(meta.height, meta.width, nl, C, device, opts.mode)
-    qm = quantization_matrix(opts.quality)
-    px = np.stack([im.data.reshape(-1, C) for im in images])  # [B, HW, C] uint8
-    pixels, qdiv, tids_dev = _upload(
-        (px, _qdiv_array(qm, BASE_FRAC_DEPTH), np.asarray(tids, np.int32)), prog.device
-    )
-    packed, hist = prog.encode_exec(
-        pixels, qdiv, opts.prediction_overrides(C), tids_dev, stages
-    )
-    resid = residual_sums(hist)
-    return _EncodeBatch(prog, packed, hist, resid, qm, meta, tids, pixels,
-                        _ready_event(prog.device))
+    with annotate("frave.encode.dispatch"):
+        if not images:
+            raise ValueError("an encode batch needs at least one image")
+        meta = images[0].metadata
+        for im in images:
+            if im.metadata != meta:
+                raise ValueError("batch images must share shape and colorspace")
+        C = meta.num_channels
+        lossless = opts.quality.name == "LOSSLESS"
+        if meta.colorspace != ColorSpace.RGB:
+            tids = [0] * len(images)
+        elif tids is None:
+            with annotate("frave.encode.transform"):
+                tids = [choose_transform(im.data, opts.color_transform, lossless)
+                        for im in images]
+        elif len(tids) != len(images) or not all(0 <= t <= 3 for t in tids):
+            raise ValueError("tids must give one transform id 0-3 an image")
+        sched = get_schedule(meta.height, meta.width, mode=opts.mode)
+        nl = opts.num_lanes or default_num_lanes(sched.num_symbols)
+        prog = get_program(meta.height, meta.width, nl, C, device, opts.mode)
+        qm = quantization_matrix(opts.quality)
+        with annotate("frave.encode.upload"):
+            px = np.stack([im.data.reshape(-1, C) for im in images])  # [B, HW, C] uint8
+            pixels, qdiv, tids_dev = _upload(
+                (px, _qdiv_array(qm, BASE_FRAC_DEPTH), np.asarray(tids, np.int32)), prog.device
+            )
+        with annotate("frave.encode.launch"):
+            packed, hist = prog.encode_exec(
+                pixels, qdiv, opts.prediction_overrides(C), tids_dev, stages
+            )
+            resid = residual_sums(hist)
+            ready = _ready_event(prog.device)
+        return _EncodeBatch(prog, packed, hist, resid, qm, meta, tids, pixels, ready)
 
 
 def residual_sums(hist: torch.Tensor) -> torch.Tensor:
@@ -821,40 +833,44 @@ def _encode_finish(enc: _EncodeBatch, opts: EncoderOptions) -> List[CompressedIm
     residual sums, and under verbose or emit_coefficients its histograms),
     then the stream prefix the largest total needs; record the metrics and
     unpack one container an image."""
-    prog = enc.prog
-    hw = prog.hdr_words
-    stats = opts.verbose or opts.emit_coefficients
-    first = _fetch((enc.packed[:, :hw], enc.resid) + ((enc.hist,) if stats else ()), enc.ready)
-    head, resid = first[0], first[1]
-    totals = head[:, hw - 1].astype(np.int64)
-    need = int((totals.max() + 1) // 2)
-    tail = _fetch(enc.packed[:, hw : hw + need], enc.ready)
-    C = prog.channels
-    m = get_metrics()
-    m.verbose = m.verbose or opts.verbose
-    if stats:
-        _record_context_stats(first[2], C, opts.emit_coefficients)
-    out = []
-    for b in range(head.shape[0]):
-        for c in range(C):
-            m.record(f"encode/mean_abs_residual_ch{c}", int(resid[b, c]) / prog.num_symbols)
-        m.record("encode/bpp", 16.0 * int(totals[b]) / (prog.height * prog.width))
-        stream = np.ascontiguousarray(tail[b]).view(np.uint16)[: totals[b]].copy()
-        channel_data, est_payload = _unpack_channels(head[b], prog)
-        out.append(
-            CompressedImage(
-                metadata=enc.meta,
-                channel_data=list(channel_data) + [None] * (3 - C),
-                quality=opts.quality.value,
-                num_lanes=prog.nl,
-                quantization_matrix=np.asarray(enc.qm, dtype=np.uint16),
-                mode=prog.mode,
-                stream=stream,
-                transform=enc.tids[b],
-                est_payload_bytes=est_payload,
-            )
-        )
-    return out
+    with annotate("frave.encode.finish"):
+        prog = enc.prog
+        hw = prog.hdr_words
+        stats = opts.verbose or opts.emit_coefficients
+        first = _fetch((enc.packed[:, :hw], enc.resid) + ((enc.hist,) if stats else ()),
+                       enc.ready)
+        head, resid = first[0], first[1]
+        totals = head[:, hw - 1].astype(np.int64)
+        need = int((totals.max() + 1) // 2)
+        tail = _fetch(enc.packed[:, hw : hw + need], enc.ready)
+        C = prog.channels
+        m = get_metrics()
+        m.verbose = m.verbose or opts.verbose
+        if stats:
+            _record_context_stats(first[2], C, opts.emit_coefficients)
+        out = []
+        with annotate("frave.encode.unpack"):
+            for b in range(head.shape[0]):
+                for c in range(C):
+                    m.record(f"encode/mean_abs_residual_ch{c}",
+                             int(resid[b, c]) / prog.num_symbols)
+                m.record("encode/bpp", 16.0 * int(totals[b]) / (prog.height * prog.width))
+                stream = np.ascontiguousarray(tail[b]).view(np.uint16)[: totals[b]].copy()
+                channel_data, est_payload = _unpack_channels(head[b], prog)
+                out.append(
+                    CompressedImage(
+                        metadata=enc.meta,
+                        channel_data=list(channel_data) + [None] * (3 - C),
+                        quality=opts.quality.value,
+                        num_lanes=prog.nl,
+                        quantization_matrix=np.asarray(enc.qm, dtype=np.uint16),
+                        mode=prog.mode,
+                        stream=stream,
+                        transform=enc.tids[b],
+                        est_payload_bytes=est_payload,
+                    )
+                )
+        return out
 
 
 def _maybe_reencode_flat(images, cis, opts, device) -> List[CompressedImage]:
@@ -871,12 +887,15 @@ def _maybe_reencode_flat(images, cis, opts, device) -> List[CompressedImage]:
         nl = rate_adaptive_lanes(ci.num_lanes, ci.est_payload_bytes, ci.metadata.num_channels)
         if nl < ci.num_lanes:
             groups.setdefault(nl, []).append(i)
-    for nl, idxs in groups.items():
-        redo = encode_pipeline_torch_batch(
-            [images[i] for i in idxs], dataclasses.replace(opts, num_lanes=nl), device
-        )
-        for i, ci in zip(idxs, redo):
-            cis[i] = ci
+    if not groups:
+        return cis
+    with annotate("frave.encode.reencode"):
+        for nl, idxs in groups.items():
+            redo = encode_pipeline_torch_batch(
+                [images[i] for i in idxs], dataclasses.replace(opts, num_lanes=nl), device
+            )
+            for i, ci in zip(idxs, redo):
+                cis[i] = ci
     return cis
 
 
@@ -902,15 +921,12 @@ def encode_pipeline_torch_stream(
     out: List[CompressedImage] = []
     pending = None
     for i in range(0, len(images), batch_size):
-        with stage_timer("encode/dispatch"):
-            enc = _encode_dispatch(images[i : i + batch_size], opts, device)
+        enc = _encode_dispatch(images[i : i + batch_size], opts, device)
         if pending is not None:
-            with stage_timer("encode/finish"):
-                out.extend(_encode_finish(pending, opts))
+            out.extend(_encode_finish(pending, opts))
         pending = enc
     if pending is not None:
-        with stage_timer("encode/finish"):
-            out.extend(_encode_finish(pending, opts))
+        out.extend(_encode_finish(pending, opts))
     return _maybe_reencode_flat(images, out, opts, device)
 
 
@@ -988,36 +1004,44 @@ class _DecodeBatch:
 def _decode_dispatch(images: List[CompressedImage], device, stages=None) -> _DecodeBatch:
     """Upload + queue the decode of one same-shape batch (the images may mix
     quality presets and transforms) without waiting for it."""
-    if not images:
-        raise ValueError("a decode batch needs at least one image")
-    meta = images[0].metadata
-    nl, mode = images[0].num_lanes, images[0].mode
-    for im in images:
-        if im.metadata != meta or im.num_lanes != nl or im.mode != mode:
-            raise ValueError("batch must share shape, colorspace, lanes and mode")
-    prog = get_program(meta.height, meta.width, nl, meta.num_channels, device, mode)
-    states, streams, bits, offpk, scales, vp, wp, qdiv, tids = assemble_wire_batch(images, nl)
-    args = _upload(
-        (states.astype(np.int64), streams.astype(np.int32), bits.astype(np.int64),
-         offpk.astype(np.int64), scales.astype(np.int64), vp, wp, qdiv, tids),
-        prog.device,
-    )
-    pixels = prog.decode_exec(*args, stages=stages)
-    return _DecodeBatch(pixels, meta, _ready_event(prog.device))
+    with annotate("frave.decode.dispatch"):
+        if not images:
+            raise ValueError("a decode batch needs at least one image")
+        meta = images[0].metadata
+        nl, mode = images[0].num_lanes, images[0].mode
+        for im in images:
+            if im.metadata != meta or im.num_lanes != nl or im.mode != mode:
+                raise ValueError("batch must share shape, colorspace, lanes and mode")
+        prog = get_program(meta.height, meta.width, nl, meta.num_channels, device, mode)
+        with annotate("frave.decode.assemble"):
+            states, streams, bits, offpk, scales, vp, wp, qdiv, tids = assemble_wire_batch(
+                images, nl)
+        with annotate("frave.decode.upload"):
+            args = _upload(
+                (states.astype(np.int64), streams.astype(np.int32), bits.astype(np.int64),
+                 offpk.astype(np.int64), scales.astype(np.int64), vp, wp, qdiv, tids),
+                prog.device,
+            )
+        with annotate("frave.decode.launch"):
+            pixels = prog.decode_exec(*args, stages=stages)
+            ready = _ready_event(prog.device)
+        return _DecodeBatch(pixels, meta, ready)
 
 
 def _decode_finish(dec: _DecodeBatch, stages=None) -> List[RasterImage]:
     """Fetch a batch's [B, C, HW] device pixels and wrap each image as a
     RasterImage (a transpose on the host)."""
-    px = _fetch(dec.pixels, dec.ready)
-    if stages is not None:
-        stages.mark("decode/fetch")
-    meta = dec.meta
-    C = meta.num_channels
-    return [
-        RasterImage(metadata=meta, data=px[b].T.reshape(meta.height, meta.width, C))
-        for b in range(px.shape[0])
-    ]
+    with annotate("frave.decode.finish"):
+        px = _fetch(dec.pixels, dec.ready)
+        if stages is not None:
+            stages.mark("decode/fetch")
+        meta = dec.meta
+        C = meta.num_channels
+        with annotate("frave.decode.wrap"):
+            return [
+                RasterImage(metadata=meta, data=px[b].T.reshape(meta.height, meta.width, C))
+                for b in range(px.shape[0])
+            ]
 
 
 def decode_pipeline_torch_batch(
@@ -1039,15 +1063,12 @@ def decode_pipeline_torch_stream(
     out: List[RasterImage] = []
     pending = None
     for i in range(0, len(images), batch_size):
-        with stage_timer("decode/dispatch"):
-            dec = _decode_dispatch(images[i : i + batch_size], device)
+        dec = _decode_dispatch(images[i : i + batch_size], device)
         if pending is not None:
-            with stage_timer("decode/finish"):
-                out.extend(_decode_finish(pending))
+            out.extend(_decode_finish(pending))
         pending = dec
     if pending is not None:
-        with stage_timer("decode/finish"):
-            out.extend(_decode_finish(pending))
+        out.extend(_decode_finish(pending))
     return out
 
 
@@ -1093,15 +1114,22 @@ def roundtrip_pipeline_torch_stream(
 
     def enc_finish(enc):
         cis = _encode_finish(enc, opts)
-        bl = [serialize(ci) for ci in cis]
-        return bl, [deserialize(b) for b in bl], enc.pixels
+        with annotate("frave.container.serialize"):
+            bl = [serialize(ci) for ci in cis]
+        with annotate("frave.container.parse"):
+            parsed = [deserialize(b) for b in bl]
+        return bl, parsed, enc.pixels
+
+    def wait(fut):
+        with annotate("frave.stream.wait"):
+            return fut.result()
 
     def collect(fut):
         nonlocal mismatches
         if device_verify:
-            mismatches += fut.result()
+            mismatches += wait(fut)
         else:
-            outs.extend(fut.result())
+            outs.extend(wait(fut))
 
     with ThreadPoolExecutor(max_workers=2) as pool:
 
@@ -1116,7 +1144,7 @@ def roundtrip_pipeline_torch_stream(
             enc = _encode_dispatch(images[i : i + batch_size], opts, device)  # enc_i
             new_dec = None
             if enc_fut is not None:
-                bl, cis, px_in = enc_fut.result()
+                bl, cis, px_in = wait(enc_fut)
                 blobs.extend(bl)
                 new_dec = launch_decode(cis, px_in)  # dec_(i-1)
             if dec_fut is not None:
@@ -1124,7 +1152,7 @@ def roundtrip_pipeline_torch_stream(
             dec_fut = new_dec
             enc_fut = pool.submit(enc_finish, enc)
         if enc_fut is not None:  # drain: the last encode's decode
-            bl, cis, px_in = enc_fut.result()
+            bl, cis, px_in = wait(enc_fut)
             blobs.extend(bl)
             last = launch_decode(cis, px_in)
             for fut in (dec_fut, last):

@@ -5,8 +5,9 @@ Scalars and arrays recorded by name, thread-safe, optionally echoed
 EncoderOptions.verbose or emit_coefficients the per-context entropies,
 and under emit_coefficients the per-context symbol histograms; the
 predictor search of the CLI reads encode/mean_abs_residual_ch{c}.
-profiling.stage_timer and pipeline_torch.StageTimes record stage wall
-times (seconds) here.
+pipeline_torch.StageTimes records stage wall times (seconds) here; the
+drivers' host steps are spans in a torch.profiler trace instead
+(profiling.annotate).
 """
 
 from __future__ import annotations

@@ -8,8 +8,13 @@ CPU.
     histograms too, the parameters pinned;
   * an encode batch still makes two fetches (the residual sums, and the
     histograms when asked for, ride the headers' fetch);
-  * the _stream drivers record encode|decode/dispatch|finish, and a
-    StageTimes records its stages in the sink;
+  * a StageTimes records its stages in the sink;
+  * the drivers' spans (profiling.annotate): with no profiler recording
+    they never call record_function; under a default torch.profiler a
+    single encode and decode show every span of the one-image path, one a
+    call (frave.fetch three times); under profiling.trace the stream's
+    worker spans sit on other threads than the caller's, whose
+    frave.stream.wait spans and dispatch|finish spans a batch appear;
   * profiling.trace writes a Chrome trace on the CPU that names an
     annotated region;
   * a fresh `python -m frave_tpu_torch.cli --help` process imports
@@ -20,10 +25,13 @@ import json
 import os
 import subprocess
 import sys
+import threading
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import frave_tpu
 import frave_tpu_torch
@@ -125,17 +133,117 @@ def test_an_encode_batch_keeps_its_two_fetches(sinks, monkeypatch, verbose):
     assert any(n.startswith("encode/context_entropy") for n in snap) == verbose
 
 
-def test_stream_drivers_record_their_stage_timers(sinks):
-    port, _ = sinks
+def _trace_spans(tmp_path):
+    """(name, tid) of every frave.* span in the one Chrome trace under
+    tmp_path."""
+    (path,) = tmp_path.iterdir()
+    events = json.loads(path.read_text())["traceEvents"]
+    return [(e["name"], e.get("tid")) for e in events
+            if e.get("ph") == "X" and str(e.get("name", "")).startswith("frave.")]
+
+
+def test_stream_drivers_record_their_stage_timers(sinks, tmp_path):
+    """The stream drivers' dispatch and finish spans, one a batch."""
     imgs = [RasterImage.from_array(natural_image(32, 32, 1, seed=s)) for s in (1, 2, 3)]
-    cis = PT.encode_pipeline_torch_stream(imgs, EncoderOptions(), batch_size=2, device="cpu")
-    outs = PT.decode_pipeline_torch_stream(cis, batch_size=2, device="cpu")
+    with profiling.trace(str(tmp_path), device="cpu"):
+        cis = PT.encode_pipeline_torch_stream(imgs, EncoderOptions(), batch_size=2,
+                                              device="cpu")
+        outs = PT.decode_pipeline_torch_stream(cis, batch_size=2, device="cpu")
     for im, out in zip(imgs, outs):
         np.testing.assert_array_equal(out.data, im.data)
-    snap = port.snapshot()
-    for name in ("encode/dispatch", "encode/finish", "decode/dispatch", "decode/finish"):
-        assert len(snap[name]) == 2 and all(t > 0 for t in snap[name]), name
-    assert len(snap["encode/bpp"]) == 3
+    got = Counter(name for name, _ in _trace_spans(tmp_path))
+    for name in ("frave.encode.dispatch", "frave.encode.finish", "frave.decode.dispatch",
+                 "frave.decode.finish"):
+        assert got[name] == 2, name
+    assert len(get_metrics().snapshot()["encode/bpp"]) == 3
+
+
+def _no_record_function(*args, **kwargs):
+    raise AssertionError("record_function called with no profiler recording")
+
+
+@pytest.mark.parametrize("path", ["batch", "stream", "roundtrip", "public"])
+def test_spans_cost_nothing_when_off(monkeypatch, path):
+    monkeypatch.setattr(torch.profiler, "record_function", _no_record_function)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", _no_record_function)
+    pxs = [natural_image(32, 40, 3, seed=s) for s in (8, 9, 10)]
+    imgs = [RasterImage.from_array(p) for p in pxs]
+    opts = EncoderOptions()
+    if path == "batch":
+        cis = PT.encode_pipeline_torch_batch(imgs, opts, "cpu")
+        outs = [o.data for o in PT.decode_pipeline_torch_batch(cis, "cpu")]
+    elif path == "stream":
+        cis = PT.encode_pipeline_torch_stream(imgs, opts, batch_size=2, device="cpu")
+        outs = [o.data for o in PT.decode_pipeline_torch_stream(cis, batch_size=2, device="cpu")]
+    elif path == "roundtrip":
+        _, res = PT.roundtrip_pipeline_torch_stream(imgs, opts, batch_size=2, device="cpu")
+        outs = [o.data for o in res]
+    else:
+        outs = [frave_tpu_torch.decode(frave_tpu_torch.encode(p, opts, device="cpu"),
+                                       device="cpu").data for p in pxs]
+    assert len(outs) == len(pxs)
+    for px, out in zip(pxs, outs):
+        np.testing.assert_array_equal(out, px)
+
+
+SINGLE_PATH_SPANS = (
+    "frave.encode.dispatch", "frave.encode.transform", "frave.encode.upload",
+    "frave.encode.launch", "frave.encode.finish", "frave.encode.unpack",
+    "frave.container.serialize", "frave.container.parse", "frave.decode.dispatch",
+    "frave.decode.assemble", "frave.decode.upload", "frave.decode.launch",
+    "frave.decode.finish", "frave.decode.wrap",
+)
+
+
+def test_single_path_spans_in_a_default_profiler():
+    """A default torch.profiler session on the caller's thread sees every
+    span of one RGB encode and decode, once a call; frave.fetch twice for
+    the encode and once for the decode."""
+    px = natural_image(32, 40, 3, seed=11)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        blob = frave_tpu_torch.encode(px, device="cpu")
+        out = frave_tpu_torch.decode(blob, device="cpu")
+    np.testing.assert_array_equal(out.data, px)
+    events = [e for e in prof.events() if e.name.startswith("frave.")]
+    got = Counter(e.name for e in events)
+    assert {n: got[n] for n in SINGLE_PATH_SPANS} == {n: 1 for n in SINGLE_PATH_SPANS}
+    assert set(got) == set(SINGLE_PATH_SPANS) | {"frave.fetch"}
+    fetches = [e.time_range for e in events if e.name == "frave.fetch"]
+    for side, n in (("encode", 2), ("decode", 1)):
+        (fin,) = [e.time_range for e in events if e.name == f"frave.{side}.finish"]
+        assert sum(fin.start <= f.start and f.end <= fin.end for f in fetches) == n, side
+    assert len(fetches) == 3
+
+
+def test_a_flat_image_reencode_is_one_span():
+    """The rate fix for flat content is one frave.encode.reencode span
+    around the re-encoded batch's own spans."""
+    flat = np.full((256, 256, 1), 77, dtype=np.uint8)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        blob = frave_tpu_torch.encode(flat, device="cpu")
+    np.testing.assert_array_equal(frave_tpu_torch.decode(blob, device="cpu").data, flat)
+    got = Counter(e.name for e in prof.events() if e.name.startswith("frave."))
+    assert got["frave.encode.reencode"] == 1
+    assert got["frave.encode.dispatch"] == got["frave.encode.finish"] == 2
+
+
+def test_stream_worker_spans_under_trace(tmp_path):
+    """profiling.trace records every thread: the stream's container work
+    on its workers, the waits for them on the caller's thread."""
+    imgs = [RasterImage.from_array(natural_image(32, 32, 1, seed=s)) for s in (12, 13, 14, 15)]
+    with profiling.trace(str(tmp_path), device="cpu"):
+        _, outs = PT.roundtrip_pipeline_torch_stream(imgs, EncoderOptions(), batch_size=2,
+                                                     device="cpu")
+    for im, out in zip(imgs, outs):
+        np.testing.assert_array_equal(out.data, im.data)
+    caller = threading.get_native_id()
+    tids = {}
+    for name, tid in _trace_spans(tmp_path):
+        tids.setdefault(name, []).append(tid)
+    for name in ("frave.encode.unpack", "frave.container.serialize", "frave.decode.wrap"):
+        assert len(tids[name]) == 2 and caller not in tids[name], name
+    assert tids["frave.stream.wait"] and set(tids["frave.stream.wait"]) == {caller}
+    assert set(tids["frave.encode.dispatch"]) == {caller}
 
 
 def test_stage_times_record_into_the_sink(sinks):
