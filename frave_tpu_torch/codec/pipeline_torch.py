@@ -56,7 +56,12 @@ is): one a batch or call for each host step, frave.encode.{dispatch,
 transform, upload, launch, finish, unpack, reencode},
 frave.decode.{dispatch, assemble, upload, launch, finish, wrap},
 frave.fetch (each blocking fetch), frave.container.{serialize, parse}
-and frave.stream.wait (the stream's main thread waiting on a worker).
+and frave.stream.wait (the stream's main thread waiting on a worker);
+inside those, the host's per-pixel copies: frave.encode.stack (the
+pixels stacked into one array), frave.decode.widen (the wire arrays cast
+to the decode's dtypes) and frave.pin (each pinned staging copy of an
+upload). transfer_bytes counts the bytes handed to _upload ("h2d") and
+returned by _fetch ("d2h"), on any device.
 """
 
 from __future__ import annotations
@@ -691,15 +696,34 @@ def _unpack_channels(head: np.ndarray, prog: CodecProgram):
 # ---------------------------------------------------------------- transfers
 
 
+# bytes handed to _upload ("h2d") and returned by _fetch ("d2h") in this
+# process, on any device
+transfer_bytes = {"h2d": 0, "d2h": 0}
+_transfer_lock = threading.Lock()
+
+
+def _count_transfer(side: str, arrays) -> None:
+    n = sum(a.nbytes for a in arrays)
+    with _transfer_lock:
+        transfer_bytes[side] += n
+
+
 def _upload(arrays, device):
     """numpy arrays -> tensors on `device`: on the card each goes through
     pinned host memory as a non_blocking copy on the current stream (the
     caching host allocator keeps the pinned block until the copy is done),
     so the host does not wait for the device."""
-    ts = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    _count_transfer("h2d", arrays)
+    ts = [torch.from_numpy(a) for a in arrays]
     if device.type == "cpu":
         return ts
-    return [t.pin_memory().to(device, non_blocking=True) for t in ts]
+    out = []
+    for t in ts:
+        with annotate("frave.pin"):
+            t = t.pin_memory()
+        out.append(t.to(device, non_blocking=True))
+    return out
 
 
 def _ready_event(device):
@@ -733,6 +757,7 @@ def _fetch(t, ready):
                 done.record(side)
             done.synchronize()
             hosts = [h.numpy() for h in hosts]
+        _count_transfer("d2h", hosts)
         return hosts[0] if isinstance(t, torch.Tensor) else hosts
 
 
@@ -785,7 +810,8 @@ def _encode_dispatch(images: List[RasterImage], opts: EncoderOptions, device,
         prog = get_program(meta.height, meta.width, nl, C, device, opts.mode)
         qm = quantization_matrix(opts.quality)
         with annotate("frave.encode.upload"):
-            px = np.stack([im.data.reshape(-1, C) for im in images])  # [B, HW, C] uint8
+            with annotate("frave.encode.stack"):
+                px = np.stack([im.data.reshape(-1, C) for im in images])  # [B, HW, C] uint8
             pixels, qdiv, tids_dev = _upload(
                 (px, _qdiv_array(qm, BASE_FRAC_DEPTH), np.asarray(tids, np.int32)), prog.device
             )
@@ -1017,11 +1043,10 @@ def _decode_dispatch(images: List[CompressedImage], device, stages=None) -> _Dec
             states, streams, bits, offpk, scales, vp, wp, qdiv, tids = assemble_wire_batch(
                 images, nl)
         with annotate("frave.decode.upload"):
-            args = _upload(
-                (states.astype(np.int64), streams.astype(np.int32), bits.astype(np.int64),
-                 offpk.astype(np.int64), scales.astype(np.int64), vp, wp, qdiv, tids),
-                prog.device,
-            )
+            with annotate("frave.decode.widen"):
+                wide = (states.astype(np.int64), streams.astype(np.int32),
+                        bits.astype(np.int64), offpk.astype(np.int64), scales.astype(np.int64))
+            args = _upload(wide + (vp, wp, qdiv, tids), prog.device)
         with annotate("frave.decode.launch"):
             pixels = prog.decode_exec(*args, stages=stages)
             ready = _ready_event(prog.device)

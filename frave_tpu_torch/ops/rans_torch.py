@@ -37,6 +37,7 @@ stream position. The row map and the row activity are shared.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -492,10 +493,15 @@ def decode_scan_wave(x, gptr, buckets, active, stream, tabs, cluster: int = 0):
     )
     _build.check(code, "frave_rans_decode_wave")
     decode_scan_wave.launches += 1
+    with _clusters_lock:
+        decode_scan_wave.clusters[size] = decode_scan_wave.clusters.get(size, 0) + 1
     return syms, x_out, g_out
 
 
 decode_scan_wave.launches = 0
+# launches by the cluster size their plan ran, {size: launches}
+decode_scan_wave.clusters = {}
+_clusters_lock = threading.Lock()
 
 
 def exchange_loop(iters: int, cluster: int, device) -> None:

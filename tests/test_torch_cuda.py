@@ -365,3 +365,43 @@ def test_cuda_wave_kernels_match_plain(name):
                                          slot_order=slot_order)
                     assert bool((got == ref).all()), (wave, slot_order)
         assert small, "no wave smaller than a tile"
+
+
+@pytest.mark.cuda
+def test_cuda_2048_rgb_decode_clusters_and_pinned_uploads():
+    """One 2048x2048 RGB image, the photo cell's shape: its decode launches
+    kernel 3 once a non-empty wave, every launch at a 16-block cluster
+    (decode_scan_wave.clusters); under a CUDA profiler each pinned staging
+    copy opens a frave.pin span inside its upload span (the pixels, the
+    divisors and the ids of an encode; the nine wire arrays of a decode),
+    and the container is byte-equal with the profiler on and off and
+    decodes to the image."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    import frave_tpu_torch
+    from frave_tpu_torch.codec import pipeline_torch as PT
+    from frave_tpu_torch.codec.container import deserialize
+    from frave_tpu_torch.ops import rans_torch as RT
+    from frave_tpu_torch.testing import natural_image
+
+    px = natural_image(2048, 2048, 3, seed=4)
+    blob = frave_tpu_torch.encode(px, device="cuda")
+    prog = PT.get_program(2048, 2048, deserialize(blob).num_lanes, 3, "cuda", "grid")
+    live = sum(1 for wd in prog.waves if wd.kw)
+    RT.decode_scan_wave.clusters.clear()
+    np.testing.assert_array_equal(frave_tpu_torch.decode(blob, device="cuda").data, px)
+    assert RT.decode_scan_wave.clusters == {16: live}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        on = frave_tpu_torch.encode(px, device="cuda")
+        out = frave_tpu_torch.decode(on, device="cuda")
+    assert on == blob
+    np.testing.assert_array_equal(out.data, px)
+    # the host's spans (each also has a device-side copy in a CUDA trace)
+    spans = [(e.name, e.time_range) for e in prof.events()
+             if e.name.startswith("frave.") and e.device_type == torch.autograd.DeviceType.CPU]
+    pins = [r for n, r in spans if n == "frave.pin"]
+    for side, n in (("encode", 3), ("decode", 9)):
+        (up,) = [r for name, r in spans if name == f"frave.{side}.upload"]
+        assert sum(up.start <= p.start and p.end <= up.end for p in pins) == n, side
+    assert len(pins) == 12

@@ -188,10 +188,10 @@ def test_spans_cost_nothing_when_off(monkeypatch, path):
 
 SINGLE_PATH_SPANS = (
     "frave.encode.dispatch", "frave.encode.transform", "frave.encode.upload",
-    "frave.encode.launch", "frave.encode.finish", "frave.encode.unpack",
-    "frave.container.serialize", "frave.container.parse", "frave.decode.dispatch",
-    "frave.decode.assemble", "frave.decode.upload", "frave.decode.launch",
-    "frave.decode.finish", "frave.decode.wrap",
+    "frave.encode.stack", "frave.encode.launch", "frave.encode.finish",
+    "frave.encode.unpack", "frave.container.serialize", "frave.container.parse",
+    "frave.decode.dispatch", "frave.decode.assemble", "frave.decode.upload",
+    "frave.decode.widen", "frave.decode.launch", "frave.decode.finish", "frave.decode.wrap",
 )
 
 
