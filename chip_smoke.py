@@ -234,7 +234,8 @@ F_SWEEP = (512, 512, 1, 3)
 F_SEARCH = ((64, 64, 1, 21), 16)  # on the card and on the CPU
 F_SEARCH_CARD = ((256, 256, 1, 1), 64)
 F_TRACE = (512, 768, 3, 2)
-F_KERNELS = ("fwd_lift_pixels", "rans_encode", "rans_decode_wave", "inv_lift_pixels")
+F_KERNELS = ("fwd_lift_pixels", "rans_encode", "rans_decode_wave", "inv_lift_pixels",
+             "transform_counts")
 # one fresh process that runs the CLI's __main__ (what `python -m
 # frave_tpu_torch.cli ARGS` runs), then prints the kernels' launch counts
 # as the last line of its stderr
@@ -383,11 +384,13 @@ def zero_counts():
     RT.decode_row.calls = 0
 
 
-def read_counts(label: str, encodes: int, decodes: int, waves: int, steps: int = 0) -> dict:
+def read_counts(label: str, encodes: int, decodes: int, waves: int, steps: int = 0,
+                choices: int = 0) -> dict:
     """The counts since zero_counts() over `encodes` encode batches and
     `decodes` decode batches (a one-image call is a batch of one): exactly
     one forward_lift_quantize_pixels, one wave_contexts (the statistics)
-    and one encode_scan launch an encode batch, one
+    and one encode_scan launch an encode batch, one transform_counts
+    launch each of the `choices` RGB encode batches under "auto", one
     dequantize_inverse_lift_pixels a decode batch, one wave_contexts, one
     decode_scan_wave and one wave_finish per non-empty wave of each grid
     decode batch with a dense lattice (`waves` in all), one decode_steps
@@ -396,13 +399,14 @@ def read_counts(label: str, encodes: int, decodes: int, waves: int, steps: int =
     launches = {n: fn.launches for n, fn in WRAPPERS.items()}
     want = {"forward_lift_quantize_pixels": encodes, "encode_scan": encodes,
             "dequantize_inverse_lift_pixels": decodes, "decode_scan_wave": waves,
-            "decode_steps": steps, "wave_contexts": encodes + waves, "wave_finish": waves}
+            "decode_steps": steps, "wave_contexts": encodes + waves, "wave_finish": waves,
+            "transform_counts": choices}
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
     if RT.decode_row.calls:
         raise AssertionError(f"{label}: the plain decode row ran {RT.decode_row.calls} times")
     print(f"main {label}: launches {json.dumps(launches)} (one kernel A, W and C an encode "
-          f"batch, one kernel B a decode batch, one kernel W, 3 and V per non-empty wave of a "
+          f"batch, one count kernel an \"auto\" RGB encode batch, one kernel B a decode batch, one kernel W, 3 and V per non-empty wave of a "
           f"dense grid decode batch, one kernel D each other decode batch); plain decode "
           f"rows 0")
     return launches
@@ -701,7 +705,7 @@ def path_d_rgb(dev, totals: dict, oracle) -> None:
     mixed = [cis_h[0], cis_l[1], cis_h[2], cis_l[3]]
     outs = PT.decode_pipeline_torch_batch(mixed, dev)
     sync(dev)
-    for n, k in read_counts(label, 2, 1, waves).items():
+    for n, k in read_counts(label, 2, 1, waves, choices=1).items():
         totals[n] += k
     if [serialize(c) for c in cis_h] != solo_h or [serialize(c) for c in cis_l] != solo_l:
         raise AssertionError(f"{label}: a batch container differs from its one-image container")
@@ -893,7 +897,7 @@ def path_e_image(case, label, mode, oracle_mode, oracle, refs, dev, totals, floo
     first_call(lab, px, opts)
     zero_counts()
     blob, out, te, td = timed_round_trips(lab, px, opts, 3, dev)
-    for n, k in read_counts(lab, 3, 3, 0, 3).items():
+    for n, k in read_counts(lab, 3, 3, 0, 3, choices=3 if c == 3 else 0).items():
         totals[n] += k
     mp = h * w / 1e6
     print(f"report {lab}: encode {te * 1e3:.3f} ms ({mp / te:.3f} MP/s) decode {td * 1e3:.3f} "
@@ -990,7 +994,8 @@ def path_e_small(dev, totals, oracle, e2_blob) -> list:
             zero_counts()
             blob, out, te, td = timed_round_trips(lab, px, EncoderOptions(), 3, dev)
             waves = 3 * kernel_check.grid_shapes(h, w, c)["waves"] if dense else 0
-            for n, k in read_counts(lab, 3, 3, waves, 0 if dense else 3).items():
+            for n, k in read_counts(lab, 3, 3, waves, 0 if dense else 3,
+                                    choices=3 if c == 3 else 0).items():
                 totals[n] += k
             print(f"report {lab} ({'dense lattice, kernel 3' if dense else 'step tensors, kernel D'}"
                   f"): encode {te * 1e3:.3f} ms decode {td * 1e3:.3f} ms, median of 3; lossless, "
@@ -1154,7 +1159,8 @@ def path_f_cli(dev, tmp, totals: dict, big_blob: bytes) -> dict:
     np.save(tmp / "grid.npy", grid_px)
     np.save(tmp / "parity.npy", par_px)
     waves = kernel_check.grid_shapes(*F_GRID[:3])["waves"]
-    enc = {"forward_lift_quantize_pixels": 1, "encode_scan": 1, "wave_contexts": 1}
+    enc = {"forward_lift_quantize_pixels": 1, "encode_scan": 1, "wave_contexts": 1,
+           "transform_counts": 1}
     # the grid encode and decode each alone (their walls are the cold
     # starts), then the native decode beside the parity encode
     groups = [
@@ -1200,18 +1206,19 @@ def path_f_bench(dev, tmp, totals: dict) -> None:
     once per non-empty wave."""
     corpus = tmp / "corpus"
     corpus.mkdir()
-    want = {"encodes": 0, "waves": 0}
+    want = {"encodes": 0, "waves": 0, "choices": 0}
     for (h, w, c), count in F_BENCH:
         for i in range(count):
             np.save(corpus / f"{w}x{h}x{c}_{i}.npy", natural_image(h, w, c, 500 + i))
         want["encodes"] += count
+        want["choices"] += count if c == 3 else 0
         want["waves"] += count * kernel_check.grid_shapes(h, w, c)["waves"]
     dflag = [] if dev.type == "cuda" else ["--device", "cpu"]
     zero_counts()
     lines, secs = cli_in_process("f3 bench", ["bench", corpus, "-o", tmp / "bench_out", *dflag])
     sync(dev)
     for n, k in read_counts("f3 bench", want["encodes"], want["encodes"],
-                            want["waves"]).items():
+                            want["waves"], choices=want["choices"]).items():
         totals[n] += k
     for line in lines:
         print(f"report f3 bench: {line}")
@@ -1295,7 +1302,7 @@ def path_f_observe(dev, tmp, totals: dict) -> None:
         out = frave_tpu_torch.decode(blob, device=dev).data
         sync(dev)
     for n, k in read_counts("f5 traced", 1, 1,
-                            kernel_check.grid_shapes(*F_TRACE[:3])["waves"]).items():
+                            kernel_check.grid_shapes(*F_TRACE[:3])["waves"], choices=1).items():
         totals[n] += k
     if not np.array_equal(out, tpx):
         raise AssertionError("f5: the traced round trip is not lossless")
@@ -1648,6 +1655,14 @@ def main() -> int:
                 plan["wave_contexts"].append((px.shape, (mode, pk), pk == "valid", (0,), 0))
         for pk in kernel_check.DECODE_KINDS[::-1]:
             plan["wave_finish"].append((px.shape, pk, pk == "valid", (0,), 0))
+    # the transform choice's counts: 768x512 and 2048x2048 RGB (stride 4)
+    # alone, lossless (timed) and lossy; 768x512 at B = 8, timed last (the
+    # kernels line reports it)
+    for label in (big_label, "768x512 RGB"):
+        for q in kernel_check.QDIV_KINDS:
+            plan["transform_counts"].append((all_images[label].shape[:2], q, q == "lossless",
+                                             (0,), 0))
+    plan["transform_counts"].append((RGB, "lossless", True, (0,), 8))
     # whole batches in one launch: 768x512 RGB at B = 4 and kernel 3 with
     # more clusters than are resident, untimed; then 256x256 gray at
     # B = 64, bench.py's batch, timed last (the kernels line reports it)
@@ -1713,7 +1728,9 @@ def main() -> int:
         runs[label] = (blob, te, td, out)
     waves = reps * sum(shapes[label]["waves"] for label in images)
     trips = reps * len(images)
-    for n, k in read_counts("lossless 256x256 gray + 768x512 RGB", trips, trips, waves).items():
+    choices = reps * sum(px.shape[2] == 3 for px in images.values())
+    for n, k in read_counts("lossless 256x256 gray + 768x512 RGB", trips, trips, waves,
+                            choices=choices).items():
         totals[n] += k
     peak = torch.cuda.max_memory_allocated(dev)
 
@@ -1799,7 +1816,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     big_blob, big_out, big_te, big_td = timed_round_trips(big_label, big_px, lossless, reps, dev)
     big_peak = torch.cuda.max_memory_allocated(dev)
-    for n, k in read_counts(big_label, reps, reps, reps * shapes[big_label]["waves"]).items():
+    for n, k in read_counts(big_label, reps, reps, reps * shapes[big_label]["waves"],
+                            choices=reps).items():
         totals[n] += k
     print(f"main {big_label}: lossless; {shapes[big_label]['waves']} decode_scan_wave "
           f"launches per decode ({len(big_blob)} B, "

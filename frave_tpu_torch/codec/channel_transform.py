@@ -3,7 +3,9 @@
 The port's copy of the host half of frave_tpu/codec/channel_transform.py:
 the per-image choice among the reversible transforms by a
 gradient-entropy proxy, computed from integer counts of the
-gradients (select_transform). The transforms themselves run on the device
+gradients (select_transform; transform_from_counts is its decision from
+counts made elsewhere: the encode driver counts on the card, through
+ops/transform_counts.py). The transforms themselves run on the device
 (ops/torch_ops.channel_transform and its inverse, which kernel B also
 runs); the forward ones here only feed the proxy. Every transform keeps
 each coding plane in [0, 255]:
@@ -115,6 +117,14 @@ def _proxy_choice(arr: np.ndarray, cands) -> int:
     return min(costs, key=costs.get)
 
 
+# each candidate's three coding planes, as indices into _candidate_planes'
+# planes, lossless and lossy
+CANDIDATE_PLANES = {
+    True: {T_NONE: (0, 1, 2), T_SUBGREEN: (3, 1, 4), T_YCOCG: (5, 6, 7)},
+    False: {T_NONE: (0, 1, 2), T_SUBGREEN_CLAMPED: (3, 1, 4)},
+}
+
+
 def _candidate_planes(arr: np.ndarray, lossless: bool):
     """Every distinct coding plane of the candidates, built once in uint8
     on the proxy's subsample arr[::s, ::s] -> ([n, h', w'] uint8, {id:
@@ -132,7 +142,7 @@ def _candidate_planes(arr: np.ndarray, lossless: bool):
     if not lossless:
         p[3] = np.clip(r.astype(np.int16) - g + 128, 0, 255)
         p[4] = np.clip(b.astype(np.int16) - g + 128, 0, 255)
-        return p, {T_NONE: (0, 1, 2), T_SUBGREEN_CLAMPED: (3, 1, 4)}
+        return p, CANDIDATE_PLANES[False]
     np.subtract(r, g, out=p[3])
     np.subtract(b, g, out=p[4])
     y, co, cg = p[5], p[6], p[7]
@@ -140,7 +150,7 @@ def _candidate_planes(arr: np.ndarray, lossless: bool):
     t = b + (co.view(np.int8) >> 1).view(np.uint8)
     np.subtract(g, t, out=cg)
     np.add(t, (cg.view(np.int8) >> 1).view(np.uint8), out=y)
-    return p, {T_NONE: (0, 1, 2), T_SUBGREEN: (3, 1, 4), T_YCOCG: (5, 6, 7)}
+    return p, CANDIDATE_PLANES[True]
 
 
 def _gradient_counts(planes: np.ndarray) -> np.ndarray:
@@ -158,16 +168,21 @@ def _gradient_counts(planes: np.ndarray) -> np.ndarray:
     ])
 
 
+def _costs_from_counts(counts: np.ndarray, lossless: bool):
+    """Each candidate's proxy cost from the planes' counts [n, 256] ->
+    ({id: cost}, N): the candidate's summed counts of |d| = k dotted in
+    float64 with log2(1 + k); N is the number of gradients a candidate's
+    cost sums (the sum of its counts: each plane has the same gradients)."""
+    counts = np.asarray(counts, np.int64)
+    sums = {t: counts[list(ix)].sum(axis=0) for t, ix in CANDIDATE_PLANES[lossless].items()}
+    costs = {t: float(c.astype(np.float64) @ _LOG2_1P) for t, c in sums.items()}
+    return costs, int(sums[T_NONE].sum())
+
+
 def _counted_costs(arr: np.ndarray, lossless: bool):
-    """Each candidate's proxy cost from integer counts -> ({id: cost}, N):
-    the candidate's summed counts of |d| = k dotted in float64 with
-    log2(1 + k); N is the number of gradients a candidate's cost sums."""
-    planes, cands = _candidate_planes(arr, lossless)
-    counts = _gradient_counts(planes)
-    costs = {t: float(counts[list(ix)].sum(axis=0).astype(np.float64) @ _LOG2_1P)
-             for t, ix in cands.items()}
-    _, h, w = planes.shape
-    return costs, 3 * (h * (w - 1) + (h - 1) * w)
+    """_costs_from_counts on the host's counts of arr's candidate planes."""
+    planes, _ = _candidate_planes(arr, lossless)
+    return _costs_from_counts(_gradient_counts(planes), lossless)
 
 
 def _tie_bound(n_terms: int) -> float:
@@ -188,19 +203,16 @@ def _tie_bound(n_terms: int) -> float:
     return 4.0 * (n_terms + 512) * 2.0 ** -53
 
 
-def select_transform(arr: np.ndarray, lossless: bool) -> int:
-    """Adaptive per-image choice by the gradient proxy. Lossless
-    candidates: NONE / SUBGREEN / YCOCG (all exactly invertible). Lossy:
-    NONE / SUBGREEN_CLAMPED (mod-256 wraps amplify quantization error,
-    so wrapping transforms are excluded — see round-1 regression test).
-
-    Every |gradient| of a uint8 plane is an integer in [0, 255], so each
-    candidate's cost is computed from integer counts (_counted_costs).
-    Where candidates lie within _tie_bound of the least counted cost, an
-    exact tie included, the exact _proxy_cost decides among them, so the
-    choice is always _proxy_choice's over every candidate."""
+def transform_from_counts(arr: np.ndarray, counts, lossless: bool) -> int:
+    """select_transform's decision from the counts [n, 256] of arr's
+    candidate planes (_gradient_counts(_candidate_planes(arr, lossless)[0]),
+    or the same counts made on the card): the candidate of least counted
+    cost. Where candidates lie within _tie_bound of the least counted
+    cost, an exact tie included, the exact _proxy_cost on arr decides
+    among them, so the choice is always _proxy_choice's over every
+    candidate."""
     global exact_fallbacks
-    costs, n_terms = _counted_costs(arr, lossless)
+    costs, n_terms = _costs_from_counts(counts, lossless)
     best = min(costs.values())
     tol = _tie_bound(n_terms) * max(costs.values())
     near = [t for t, c in costs.items() if c - best <= tol]
@@ -210,6 +222,19 @@ def select_transform(arr: np.ndarray, lossless: bool) -> int:
         exact_fallbacks += 1
     with annotate("frave.encode.transform.exact"):
         return _proxy_choice(arr, near)
+
+
+def select_transform(arr: np.ndarray, lossless: bool) -> int:
+    """Adaptive per-image choice by the gradient proxy. Lossless
+    candidates: NONE / SUBGREEN / YCOCG (all exactly invertible). Lossy:
+    NONE / SUBGREEN_CLAMPED (mod-256 wraps amplify quantization error,
+    so wrapping transforms are excluded — see round-1 regression test).
+
+    Every |gradient| of a uint8 plane is an integer in [0, 255], so each
+    candidate's cost is computed from integer counts (_gradient_counts),
+    and transform_from_counts decides from them."""
+    planes, _ = _candidate_planes(arr, lossless)
+    return transform_from_counts(arr, _gradient_counts(planes), lossless)
 
 
 def choose_transform(

@@ -44,7 +44,11 @@ own batch, so it never waits behind work queued later. The host blocks
 only on those fetches: each batch's headers (with each image's residual
 sums, and its histograms under verbose or emit_coefficients), then its
 stream prefix (two per encode batch), its pixels or mismatch count (one
-per decode batch).
+per decode batch); and, before an RGB batch under the "auto" transform
+policy is queued, its gradient counts: the pixels' upload and the count
+kernel (ops/transform_counts.py) run on a stream of their own
+(_count_stream), so that wait covers them alone, and the host decides
+each image's transform from the counts (transform_from_counts).
 
 Metrics (metrics.get_metrics()), as the JAX pipeline records them:
 encode/bpp and encode/mean_abs_residual_ch{c} an image; the context
@@ -53,20 +57,22 @@ stage times of a StageTimes a caller passes.
 
 Spans (profiling.annotate; recorded only while a torch.profiler session
 is): one a batch or call for each host step, frave.encode.{dispatch,
-transform, upload, launch, finish, unpack, reencode},
+transform (the choice; under "auto" the count launch, its fetch and the
+decision), upload, launch, finish, unpack, reencode},
 frave.decode.{dispatch, assemble, upload, launch, finish, wrap},
 frave.fetch (each blocking fetch), frave.container.{serialize, parse}
 and frave.stream.wait (the stream's main thread waiting on a worker);
 inside those, the host's per-pixel copies: frave.encode.stack (the
-pixels stacked into one array), frave.decode.widen (the wire arrays cast
-to the decode's dtypes) and frave.pin (each pinned staging copy of an
-upload). transfer_bytes counts the bytes handed to _upload ("h2d") and
-returned by _fetch ("d2h"), on any device.
+pixels stacked into one array), frave.decode.widen (the uploaded wire
+arrays cast to the decode's dtypes, on the device) and frave.pin (each
+pinned staging copy of an upload). transfer_bytes counts the bytes
+handed to _upload ("h2d") and returned by _fetch ("d2h"), on any device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import threading
 import time
@@ -102,8 +108,9 @@ from ..ops.rans_torch import (
 from ..ops import step_decode as SD
 from ..ops import wave_ctx as WC
 from ..ops.step_decode import decode_steps
+from ..ops.transform_counts import transform_counts
 from ..profiling import annotate
-from .channel_transform import choose_transform
+from .channel_transform import choose_transform, transform_from_counts
 from .grid_decode import build_grid_decode, fit_stride, get_wave_devs, wave_starts, wire_tables
 from .container import deserialize, serialize
 from .options import EncoderOptions, quantization_matrix
@@ -783,11 +790,39 @@ class _EncodeBatch:
     ready: object
 
 
+@functools.lru_cache(maxsize=None)
+def _count_stream(device: torch.device):
+    """The stream of device on which an "auto" RGB batch's pixel upload and
+    gradient counts run, so that the host's wait for the counts covers
+    them alone: on the current stream they would queue behind what was
+    queued before (in the stream drivers, the decode of an earlier batch).
+    A high-priority pool stream: the fetches' side streams come from the
+    other pool, so none of them shares it."""
+    return torch.cuda.Stream(device=device, priority=-1)
+
+
+def _counted_tids(images: List[RasterImage], pixels: torch.Tensor, lossless: bool,
+                  side) -> List[int]:
+    """Each image's transform id from the gradient counts of its uploaded
+    pixels [B, HW, 3] (the count kernel, on stream `side`; the plain
+    version on the CPU, where `side` is None), decided on the host by
+    transform_from_counts (which falls back to the exact proxy on
+    im.data on a near tie)."""
+    meta = images[0].metadata
+    with torch.cuda.stream(side):
+        counts = transform_counts(pixels, meta.height, meta.width, lossless)
+        ready = _ready_event(pixels.device)
+    counts = _fetch(counts, ready)
+    return [transform_from_counts(im.data, c, lossless) for im, c in zip(images, counts)]
+
+
 def _encode_dispatch(images: List[RasterImage], opts: EncoderOptions, device,
                      stages=None, tids=None) -> _EncodeBatch:
     """Upload + queue the fused encode of one same-shape batch without
-    waiting for it: the host resolves each image's transform (`tids`
-    forces them, one id 0-3 an RGB image), the device does the rest."""
+    waiting for it but for the transform choice: the host resolves each
+    image's transform (`tids` forces them, one id 0-3 an RGB image); under
+    "auto" it decides from gradient counts that the device makes from the
+    uploaded pixels (_counted_tids). The device does the rest."""
     with annotate("frave.encode.dispatch"):
         if not images:
             raise ValueError("an encode batch needs at least one image")
@@ -797,25 +832,37 @@ def _encode_dispatch(images: List[RasterImage], opts: EncoderOptions, device,
                 raise ValueError("batch images must share shape and colorspace")
         C = meta.num_channels
         lossless = opts.quality.name == "LOSSLESS"
+        counted = False
         if meta.colorspace != ColorSpace.RGB:
             tids = [0] * len(images)
         elif tids is None:
-            with annotate("frave.encode.transform"):
-                tids = [choose_transform(im.data, opts.color_transform, lossless)
-                        for im in images]
+            counted = opts.color_transform == "auto"
+            if not counted:
+                with annotate("frave.encode.transform"):
+                    tids = [choose_transform(im.data, opts.color_transform, lossless)
+                            for im in images]
         elif len(tids) != len(images) or not all(0 <= t <= 3 for t in tids):
             raise ValueError("tids must give one transform id 0-3 an image")
         sched = get_schedule(meta.height, meta.width, mode=opts.mode)
         nl = opts.num_lanes or default_num_lanes(sched.num_symbols)
         prog = get_program(meta.height, meta.width, nl, C, device, opts.mode)
         qm = quantization_matrix(opts.quality)
+        side = _count_stream(prog.device) if counted and prog.device.type == "cuda" else None
         with annotate("frave.encode.upload"):
             with annotate("frave.encode.stack"):
                 px = np.stack([im.data.reshape(-1, C) for im in images])  # [B, HW, C] uint8
-            pixels, qdiv, tids_dev = _upload(
-                (px, _qdiv_array(qm, BASE_FRAC_DEPTH), np.asarray(tids, np.int32)), prog.device
-            )
+            with torch.cuda.stream(side):
+                (pixels,) = _upload((px,), prog.device)
+            (qdiv,) = _upload((_qdiv_array(qm, BASE_FRAC_DEPTH),), prog.device)
+        if counted:
+            with annotate("frave.encode.transform"):
+                tids = _counted_tids(images, pixels, lossless, side)
         with annotate("frave.encode.launch"):
+            (tids_dev,) = _upload((np.asarray(tids, np.int32),), prog.device)
+            if side is not None:  # the encode reads the pixels uploaded on `side`
+                main = torch.cuda.current_stream(prog.device)
+                main.wait_stream(side)
+                pixels.record_stream(main)
             packed, hist = prog.encode_exec(
                 pixels, qdiv, opts.prediction_overrides(C), tids_dev, stages
             )
@@ -1017,6 +1064,15 @@ def assemble_wire_batch(images, nl: int):
     return states, streams, bits, offpk, scales, vparams, wparams, qdiv, tids
 
 
+def _widen_wire(states, streams, bits, offpk, scales):
+    """The uploaded wire arrays (states and offpk: u32 bits as int32;
+    streams: u16 bits as int16; bits and scales int32) in the dtypes
+    decode_exec takes, on their device: states, bits, offpk and scales
+    int64, streams int32."""
+    return (states.to(_I64) & 0xFFFFFFFF, streams.to(_I32) & 0xFFFF, bits.to(_I64),
+            offpk.to(_I64) & 0xFFFFFFFF, scales.to(_I64))
+
+
 @dataclasses.dataclass
 class _DecodeBatch:
     """One dispatched decode batch: the device pixels [B, C, HW], the
@@ -1043,10 +1099,12 @@ def _decode_dispatch(images: List[CompressedImage], device, stages=None) -> _Dec
             states, streams, bits, offpk, scales, vp, wp, qdiv, tids = assemble_wire_batch(
                 images, nl)
         with annotate("frave.decode.upload"):
+            # the wire arrays go up in their own widths (the unsigned ones
+            # as the signed view of the same bits)
+            up = _upload((states.view(np.int32), streams.view(np.int16), bits,
+                          offpk.view(np.int32), scales, vp, wp, qdiv, tids), prog.device)
             with annotate("frave.decode.widen"):
-                wide = (states.astype(np.int64), streams.astype(np.int32),
-                        bits.astype(np.int64), offpk.astype(np.int64), scales.astype(np.int64))
-            args = _upload(wide + (vp, wp, qdiv, tids), prog.device)
+                args = _widen_wire(*up[:5]) + tuple(up[5:])
         with annotate("frave.decode.launch"):
             pixels = prog.decode_exec(*args, stages=stages)
             ready = _ready_event(prog.device)

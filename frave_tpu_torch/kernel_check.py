@@ -23,13 +23,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .codec import channel_transform as CT
 from .entropy.tables import ALPHABET_SIZE, CONTEXT_AMOUNT, _LAPLACE_GRID_ROWS
 from .entropy.tables_torch import finalize_contexts_device
 from .ops import lifting as L
 from .ops import rans_torch as RT
 from .ops import step_decode as SD
 from .ops import tp_decode as TD
+from .ops import transform_counts as TC
 from .ops import wave_ctx as WC
+from .testing import natural_image
 
 # name -> (wrapper, plain version, CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -76,6 +79,12 @@ KERNELS = {
         "frave_tpu_torch/csrc/wave_context.cu",
         "frave_tpu/codec/grid_decode.py:401-424 + :448-458 (decode_fused_grid :326)",
     ),
+    "transform_counts": (
+        TC.transform_counts,
+        TC.transform_counts_plain,
+        "frave_tpu_torch/csrc/transform_counts.cu",
+        "none (frave_tpu/codec/channel_transform.py select_transform counts on the host)",
+    ),
 }
 # the kernels with a forced cluster size (the others run their launch rule)
 CLUSTERED = ("decode_scan_wave", "decode_steps")
@@ -87,8 +96,9 @@ HBM_BYTES_PER_S = 3.35e12
 CLUSTERS = (1, 2, 4, 8, 16)
 # problem kinds of decode_scan_wave (kernel B's kind is its transform id,
 # kernel A's a (transform id, qdiv) pair from QDIV_KINDS, W's a (mode,
-# kind) pair from WAVE_MODES and DECODE_KINDS, V's one of DECODE_KINDS;
-# the other kernels have one kind, None)
+# kind) pair from WAVE_MODES and DECODE_KINDS, V's one of DECODE_KINDS,
+# transform_counts' one of QDIV_KINDS; the other kernels have one kind,
+# None)
 DECODE_KINDS = ("valid", "garbage")
 WAVE_MODES = ("decode", "encode")
 QDIV_KINDS = ("lossless", "lossy")
@@ -330,6 +340,30 @@ def lift_head_problem(rng, prog, tid: int, qkind: str = "lossy", images: int = 0
     return (pixels.to(dev), prog.leaf_pix, qdiv.to(dev)), (tids,)
 
 
+def counts_problem(rng, h: int, w: int, kind: str = "lossless", images: int = 0):
+    """transform_counts' operands on the CPU: a seeded RGB image [h*w, 3]
+    (images > 0: [B, h*w, 3], image b of content b % 4: photo-like,
+    photo-like with a saturated red corner (where the mod-256 wraps cost),
+    uniform noise, gray R = G = B (the tie of SUBGREEN and YCOCG)), h, w
+    and lossless (kind "lossless" or "lossy")."""
+    if kind not in QDIV_KINDS:
+        raise ValueError(f"unknown counts kind {kind!r}")
+    pxs = []
+    for b in range(max(images, 1)):
+        seed = int(rng.integers(1 << 31))
+        if b % 4 == 2:
+            px = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+        elif b % 4 == 3:
+            px = np.repeat(natural_image(h, w, 1, seed), 3, axis=2)
+        else:
+            px = natural_image(h, w, 3, seed)
+            if b % 4 == 1:
+                px[: h // 4, : w // 4, 0] = 255
+        pxs.append(px.reshape(h * w, 3))
+    pixels = _t(np.stack(pxs)) if images else _t(pxs[0])
+    return pixels, h, w, kind == "lossless"
+
+
 def grid_shapes(h: int, w: int, c: int, nl: int = 0) -> dict:
     """The shapes the main path gives the kernels at an h x w x c image
     with nl lanes (0: the default count): "grid" (R, C, NL) of
@@ -464,7 +498,8 @@ def problem(name: str, rng, shape, kind=None, device="cpu", images: int = 0):
     finish_problem). `kind` picks decode_scan_wave's and wave_finish's
     problem (DECODE_KINDS), W's (mode, problem kind) (default ("decode",
     "valid")), kernel B's transform id (0-3) and kernel A's (transform id,
-    qdiv kind) (default (0, "lossy")).
+    qdiv kind) (default (0, "lossy")); transform_counts (h, w) on the CPU
+    (counts_problem; kind "lossless", the default, or "lossy").
     images: 0 for one image without a batch axis, else the batch size."""
     if name == "decode_scan_wave":
         return decode_problem(rng, *shape, kind, images), ()
@@ -480,6 +515,8 @@ def problem(name: str, rng, shape, kind=None, device="cpu", images: int = 0):
         return wave_problem(rng, shape, kind or ("decode", "valid"), device, images)
     if name == "wave_finish":
         return finish_problem(rng, shape, kind or "valid", device, images)
+    if name == "transform_counts":
+        return counts_problem(rng, *shape, kind or "lossless", images), ()
     if kind is not None:
         raise ValueError(f"{name} has no problem kinds")
     if name == "encode_scan":
@@ -563,7 +600,8 @@ def bytes_moved(name: str, args, out) -> int:
     only the words the wave consumes (the rest is padding it never reads);
     of kernel B's, the T*512 columns of each coefficient row and not
     pix_inv, which only the plain version reads; of kernel A's, the pixels,
-    leaf_pix, qdiv and the T*512 + 1 columns it writes a channel."""
+    leaf_pix, qdiv and the T*512 + 1 columns it writes a channel; of
+    transform_counts', the pixels of the proxy's subsample and the counts."""
     if name == "dequantize_inverse_lift_pixels":
         qplane, nm, lm, qdiv, leaf_pix, _ = args
         used = qplane.shape[0] * nm.numel() * qplane.element_size()
@@ -594,6 +632,11 @@ def bytes_moved(name: str, args, out) -> int:
             reads += kw
         return (kw * WC.REC_WORDS * 4 + reads * plane.shape[0] * 4
                 + _nbytes((vparams, wparams)) + _nbytes(out))
+    if name == "transform_counts":
+        pixels, h, w = args[:3]
+        s = CT._proxy_stride(h, w)
+        images = pixels.shape[0] if pixels.dim() == 3 else 1
+        return images * -(-h // s) * -(-w // s) * 3 + _nbytes(out)
     if name == "wave_finish":
         # the wave's slots, its symbols and predictions, the stored values
         syms, preds = args[:2]

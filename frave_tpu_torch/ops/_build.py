@@ -65,6 +65,7 @@ _SIGNATURES = {
     "frave_wave_finish": [_P] + [_L] * 4 + [_I] + [_P] * 4 + [_L] + [_I] * 7 + [_P],
     "frave_wave_occupancy": [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "frave_wave_empty": [_I, _I, _I, _P],
+    "frave_transform_counts": [_P, _P] + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

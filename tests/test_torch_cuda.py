@@ -372,8 +372,9 @@ def test_cuda_2048_rgb_decode_clusters_and_pinned_uploads():
     """One 2048x2048 RGB image, the photo cell's shape: its decode launches
     kernel 3 once a non-empty wave, every launch at a 16-block cluster
     (decode_scan_wave.clusters); under a CUDA profiler each pinned staging
-    copy opens a frave.pin span inside its upload span (the pixels, the
-    divisors and the ids of an encode; the nine wire arrays of a decode),
+    copy opens a frave.pin span inside its upload span (the pixels and the
+    divisors of an encode; the nine wire arrays of a decode) or, for the
+    transform ids, which wait for the choice, inside the encode's launch span,
     and the container is byte-equal with the profiler on and off and
     decodes to the image."""
     if not torch.cuda.is_available():
@@ -401,7 +402,75 @@ def test_cuda_2048_rgb_decode_clusters_and_pinned_uploads():
     spans = [(e.name, e.time_range) for e in prof.events()
              if e.name.startswith("frave.") and e.device_type == torch.autograd.DeviceType.CPU]
     pins = [r for n, r in spans if n == "frave.pin"]
-    for side, n in (("encode", 3), ("decode", 9)):
-        (up,) = [r for name, r in spans if name == f"frave.{side}.upload"]
-        assert sum(up.start <= p.start and p.end <= up.end for p in pins) == n, side
+    for span, n in (("encode.upload", 2), ("encode.launch", 1), ("decode.upload", 9)):
+        (up,) = [r for name, r in spans if name == f"frave.{span}"]
+        assert sum(up.start <= p.start and p.end <= up.end for p in pins) == n, span
     assert len(pins) == 12
+
+
+# the count kernel's shapes: the transform proxy's strides 1 (an odd shape
+# and 768x512), 2, 3 and 4 (odd shapes among them, and 2048x2048)
+COUNT_SHAPES = [(97, 131), (512, 768), (771, 1031), (1537, 1539), (1803, 1805), (2048, 2048)]
+
+
+@pytest.mark.cuda
+def test_cuda_transform_counts_match_the_host():
+    """The count kernel's [B, N, 256] counts equal _gradient_counts' bit
+    for bit, lossless (N = 8) and lossy (N = 5), at every stride of
+    COUNT_SHAPES: on a batch of 4 of mixed content (photo-like, the
+    saturated-chroma corner, noise, gray) in one launch, and on one
+    image at the odd shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    from frave_tpu_torch.codec import channel_transform as CT
+    from frave_tpu_torch.ops import transform_counts as TC
+
+    assert {CT._proxy_stride(h, w) for h, w in COUNT_SHAPES} == {1, 2, 3, 4}
+    for h, w in COUNT_SHAPES:
+        for kind in kernel_check.QDIV_KINDS:
+            for images in (4, 0) if (h * w) % 2 else (4,):
+                before = TC.transform_counts.launches
+                res = kernel_check.check("transform_counts", (h, w), torch.device("cuda"),
+                                         kind=kind, images=images)
+                assert res["max_abs_err"] == 0, res
+                assert TC.transform_counts.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quality", ["LOSSLESS", "HIGH"])
+def test_cuda_encode_dispatch_counts_the_transform_choice(quality, monkeypatch):
+    """An "auto" RGB batch's ids come from the count kernel (one launch a
+    batch; the host's _gradient_counts never runs) and equal
+    choose_transform's for each image; its containers are byte-equal to
+    those made with those ids forced (which launches no count), alone and
+    through the stream round trip, whose decodes give the images."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    from frave_tpu_torch.codec import channel_transform as CT
+    from frave_tpu_torch.codec import pipeline_torch as PT
+    from frave_tpu_torch.codec.container import serialize
+    from frave_tpu_torch.codec.options import EncoderOptions, EncoderQuality
+    from frave_tpu_torch.images import RasterImage
+    from frave_tpu_torch.ops import transform_counts as TC
+
+    dev = torch.device("cuda")
+    opts = EncoderOptions(quality=EncoderQuality[quality])
+    lossless = quality == "LOSSLESS"
+    for (h, w), images in (((96, 80), 4), ((512, 768), 2)):
+        pixels = kernel_check.counts_problem(np.random.default_rng(h), h, w, images=images)[0]
+        imgs = [RasterImage.from_array(p.numpy().reshape(h, w, 3)) for p in pixels]
+        want = [CT.choose_transform(im.data, "auto", lossless) for im in imgs]
+        forced = [serialize(ci) for ci in
+                  PT._encode_finish(PT._encode_dispatch(imgs, opts, dev, tids=want), opts)]
+        before = TC.transform_counts.launches
+        with monkeypatch.context() as m:
+            m.setattr(CT, "_gradient_counts", None)  # a call would raise
+            enc = PT._encode_dispatch(imgs, opts, dev)
+            got = [serialize(ci) for ci in PT._encode_finish(enc, opts)]
+            blobs, outs = PT.roundtrip_pipeline_torch_stream(imgs * 3, opts, images, dev)
+        assert TC.transform_counts.launches == before + 4
+        assert enc.tids == want, (h, w)
+        assert got == forced and blobs == forced * 3, (h, w)
+        for im, out in zip(imgs * 3, outs):
+            if lossless:
+                np.testing.assert_array_equal(out.data, im.data)

@@ -11,7 +11,8 @@ branches of 2048x2048 RGB, and its per-pixel host copies, on the CPU.
     (frave.encode.stack in frave.encode.upload, frave.decode.widen in
     frave.decode.upload; frave.pin opens only where _upload pins, on the
     card), transfer_bytes grows by exactly the bytes of the arrays
-    uploaded and fetched, and a container is byte-equal with a profiler
+    uploaded and fetched (the gradient counts of the transform choice
+    among them), and a container is byte-equal with a profiler
     on and off.
 """
 
@@ -88,9 +89,11 @@ def test_transfer_bytes_count_the_arrays_moved():
     ci = deserialize(blob)
     prog = PT.get_program(64, 64, ci.num_lanes, C, "cpu", "grid")
     # up: the pixels, the 512 int32 divisors and the transform id; down: the
-    # header row with its residual sums [C] int64, then the stream's int32 words
+    # candidate planes' gradient counts [8, 256] int32, the header row with
+    # its residual sums [C] int64, then the stream's int32 words
     assert enc["h2d"] == px.nbytes + 512 * 4 + 4
-    assert enc["d2h"] == 4 * prog.hdr_words + 8 * C + 4 * ((len(ci.stream) + 1) // 2)
+    assert enc["d2h"] == (8 * 256 * 4 + 4 * prog.hdr_words + 8 * C
+                          + 4 * ((len(ci.stream) + 1) // 2))
 
     before = dict(PT.transfer_bytes)
     out = frave_tpu_torch.decode(blob, device="cpu")
@@ -98,10 +101,10 @@ def test_transfer_bytes_count_the_arrays_moved():
     np.testing.assert_array_equal(out.data, px)
     states, streams, bits, offpk, scales, vp, wp, qdiv, tids = PT.assemble_wire_batch(
         [ci], ci.num_lanes)
-    # the wire arrays as the decode widens them: u32 states, bits, offsets and
-    # scales to int64, the u16 stream to int32
-    wide = 8 * (states.size + bits.size + offpk.size + scales.size) + 4 * streams.size
-    assert dec["h2d"] == wide + vp.nbytes + wp.nbytes + qdiv.nbytes + tids.nbytes
+    # the wire arrays in their own widths (the decode widens them on the
+    # device): u32 states, int32 bits, u32 offsets, int32 scales, the u16 stream
+    wire = 4 * (states.size + bits.size + offpk.size + scales.size) + 2 * streams.size
+    assert dec["h2d"] == wire + vp.nbytes + wp.nbytes + qdiv.nbytes + tids.nbytes
     assert dec["d2h"] == px.nbytes
 
 

@@ -6,13 +6,14 @@ CPU.
   * encode/bpp and, under verbose, the per-context entropies equal the jax
     backend's (abs 1e-9), and under emit_coefficients the per-context
     histograms too, the parameters pinned;
-  * an encode batch still makes two fetches (the residual sums, and the
-    histograms when asked for, ride the headers' fetch);
+  * an encode batch's finish still makes two fetches (the residual sums,
+    and the histograms when asked for, ride the headers' fetch), after
+    the one of an RGB batch's gradient counts;
   * a StageTimes records its stages in the sink;
   * the drivers' spans (profiling.annotate): with no profiler recording
     they never call record_function; under a default torch.profiler a
     single encode and decode show every span of the one-image path, one a
-    call (frave.fetch three times); under profiling.trace the stream's
+    call (frave.fetch four times); under profiling.trace the stream's
     worker spans sit on other threads than the caller's, whose
     frave.stream.wait spans and dispatch|finish spans a batch appear;
   * profiling.trace writes a Chrome trace on the CPU that names an
@@ -127,7 +128,7 @@ def test_an_encode_batch_keeps_its_two_fetches(sinks, monkeypatch, verbose):
     monkeypatch.setattr(PT, "_fetch", fetch)
     imgs = [RasterImage.from_array(natural_image(32, 40, 3, seed=s)) for s in (6, 7)]
     PT.encode_pipeline_torch_batch(imgs, EncoderOptions(verbose=verbose), "cpu")
-    assert len(fetched) == 2
+    assert len(fetched) == 1 + 2  # the transform choice's gradient counts, then the finish's
     snap = port.snapshot()
     assert [len(snap[f"encode/mean_abs_residual_ch{c}"]) for c in range(3)] == [2, 2, 2]
     assert any(n.startswith("encode/context_entropy") for n in snap) == verbose
@@ -197,8 +198,9 @@ SINGLE_PATH_SPANS = (
 
 def test_single_path_spans_in_a_default_profiler():
     """A default torch.profiler session on the caller's thread sees every
-    span of one RGB encode and decode, once a call; frave.fetch twice for
-    the encode and once for the decode."""
+    span of one RGB encode and decode, once a call; frave.fetch once in the
+    encode's transform choice (the gradient counts), twice in its finish
+    and once in the decode's."""
     px = natural_image(32, 40, 3, seed=11)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         blob = frave_tpu_torch.encode(px, device="cpu")
@@ -209,10 +211,10 @@ def test_single_path_spans_in_a_default_profiler():
     assert {n: got[n] for n in SINGLE_PATH_SPANS} == {n: 1 for n in SINGLE_PATH_SPANS}
     assert set(got) == set(SINGLE_PATH_SPANS) | {"frave.fetch"}
     fetches = [e.time_range for e in events if e.name == "frave.fetch"]
-    for side, n in (("encode", 2), ("decode", 1)):
-        (fin,) = [e.time_range for e in events if e.name == f"frave.{side}.finish"]
-        assert sum(fin.start <= f.start and f.end <= fin.end for f in fetches) == n, side
-    assert len(fetches) == 3
+    for parent, n in (("encode.transform", 1), ("encode.finish", 2), ("decode.finish", 1)):
+        (span,) = [e.time_range for e in events if e.name == f"frave.{parent}"]
+        assert sum(span.start <= f.start and f.end <= span.end for f in fetches) == n, parent
+    assert len(fetches) == 4
 
 
 def test_a_flat_image_reencode_is_one_span():

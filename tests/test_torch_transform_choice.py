@@ -9,7 +9,10 @@ gradient-entropy proxy it stands for.
     saturated-chroma corner too) with no fallback to the exact proxy;
   * an exact tie (R = G = B: SUBGREEN and YCOCG code the same planes)
     falls back to the exact proxy once, inside one
-    frave.encode.transform.exact span, and picks what it picks.
+    frave.encode.transform.exact span, and picks what it picks;
+  * transform_from_counts, fed a batch's counts from the count kernel's
+    wrapper (its plain version on the CPU: _gradient_counts), picks
+    select_transform's id for each image, with the same fallbacks.
 """
 
 from collections import Counter
@@ -19,6 +22,7 @@ import pytest
 import torch
 
 from frave_tpu_torch.codec import channel_transform as CT
+from frave_tpu_torch.ops.transform_counts import transform_counts
 from frave_tpu_torch.testing import natural_image
 
 # (h, w): the last one samples at _proxy_stride 2
@@ -80,3 +84,21 @@ def test_an_exact_tie_falls_back_to_the_exact_proxy():
     assert CT.exact_fallbacks == before + 1
     spans = Counter(e.name for e in prof.events() if e.name.startswith("frave."))
     assert spans == {"frave.encode.transform.exact": 1}
+
+
+@pytest.mark.parametrize("lossless", [True, False])
+def test_the_decision_from_counts_is_select_transforms(lossless):
+    h, w = 96, 80
+    tie = np.repeat(natural_image(h, w, 1, seed=7), 3, axis=2)
+    pxs = [_image(h, w, False), _image(h, w, True), tie]
+    counts = transform_counts(torch.from_numpy(np.stack(pxs).reshape(3, h * w, 3)), h, w,
+                              lossless)
+    assert counts.shape == (3, 8 if lossless else 5, 256) and counts.dtype == torch.int32
+    for px, c in zip(pxs, counts.numpy()):
+        np.testing.assert_array_equal(c, CT._gradient_counts(CT._candidate_planes(px, lossless)[0]))
+        before = CT.exact_fallbacks
+        got = CT.transform_from_counts(px, c, lossless)
+        fallbacks = CT.exact_fallbacks - before
+        assert got == CT.select_transform(px, lossless)
+        assert CT.exact_fallbacks - before == 2 * fallbacks
+    assert fallbacks == int(lossless)  # the tie: SUBGREEN's planes are YCOCG's
