@@ -12,8 +12,8 @@ the whole batch in one launch. The one-image calls are batches of one.
 Encode (CodecProgram.encode_exec): channel transform, leaf gather,
 forward lifting + quantize (one launch, kernel A) -> statistics: one
 gather of the fit samples' taps (every HF symbol; in grid mode from K =
-2^18 symbols up every fit_stride-th of a wave, as the JAX program's dense
-grid_decode.build_grid_encode subsamples) -> Gram/Cholesky predictor
+2^18 symbols up every fit_stride-th of a wave, as the JAX program's
+dense grid statistics subsample) -> Gram/Cholesky predictor
 fits rounded to the f16 wire values -> contexts and zig-zag symbols from
 the schedule records (one launch, kernel W, ops/wave_ctx.py) ->
 exact histogram -> context tables -> reverse rANS scan (kernel C) over
@@ -24,15 +24,15 @@ decode order) -> one packed int32 row per image (headers + stream) that
 the host unpacks into a container.
 
 Decode (CodecProgram.decode_exec): table regeneration -> grid mode with a
-dense lattice: per wave, the contexts from the schedule records (kernel
-W), the rANS rows (kernel 3), the values into the plane (kernel V);
-every other program (the parallel and parity modes, and grid-mode shapes
-under ~32 px a side): every step of the step tensors in one launch of
-kernel D (ops/step_decode.py) -> dequantize + inverse lifting, clamp,
-inverse transform and pixel scatter (kernel B).
+wave table (codec/grid_decode.py): per wave, the contexts from the
+schedule records (kernel W), the rANS rows (kernel 3), the values into
+the plane (kernel V); every other program (the parallel and parity
+modes, and grid-mode shapes under ~32 px a side): every step of the step
+tensors in one launch of kernel D (ops/step_decode.py) -> dequantize +
+inverse lifting, clamp, inverse transform and pixel scatter (kernel B).
 
 Everything the JAX program uploads once per shape (geometry gathers,
-masks, schedule tensors, Laplace grid, wave plans) is built from the same
+masks, schedule tensors, Laplace grid) is built from the same
 numpy host structures (the port's copies of frave_tpu's host modules)
 and kept on the program's device.
 
@@ -111,7 +111,7 @@ from ..ops.step_decode import decode_steps
 from ..ops.transform_counts import transform_counts
 from ..profiling import annotate
 from .channel_transform import choose_transform, transform_from_counts
-from .grid_decode import build_grid_decode, fit_stride, get_wave_devs, wave_starts, wire_tables
+from .grid_decode import build_grid_decode, grid_waves, wave_starts, wire_tables
 from .container import deserialize, serialize
 from .options import EncoderOptions, quantization_matrix
 
@@ -121,8 +121,8 @@ _F32 = torch.float32
 _F64 = torch.float64
 # per channel: bits [CA] + off bitmask [CA, 32] + Laplace-grid scales [CA]
 _HDR_TABLES = CONTEXT_AMOUNT + CONTEXT_AMOUNT * (ALPHABET_SIZE // 32) + CONTEXT_AMOUNT
-# the statistics gate of the JAX program: the dense shift-plane path from
-# this many symbols up (FRAVE_GRID_ENC="force" always, "0" never)
+# the statistics gate of the JAX program: the strided fits from this many
+# symbols up (FRAVE_GRID_ENC="force" always, "0" never)
 GRID_ENC_MIN_K = 1 << 18
 
 
@@ -298,6 +298,16 @@ def fit_predictors(Xs_l, ys_l, overrides, reduce=None):
     return vparams, T.f16_wire_round(wparams)
 
 
+def fit_stride(kw: int) -> int:
+    """The subsampling stride of a predictor group of kw symbols in grid
+    mode's strided fits: FRAVE_FIT_CAP, read as the JAX package reads it,
+    caps the Gram samples of a group (0 = none) at every stride-th symbol
+    in lane order; the fitted values travel on the wire, so subsampling
+    moves only the rate."""
+    cap = int(os.environ.get("FRAVE_FIT_CAP", str(1 << 17)))
+    return -(-kw // cap) if (cap > 0 and kw > cap) else 1
+
+
 class CodecProgram:
     """The codec for one (height, width, num_lanes, channels, mode) on one
     device, over same-shape batches of any size. Build with
@@ -309,11 +319,12 @@ class CodecProgram:
         """Build every device constant from the numpy structures that
         pipeline_jax.CodecProgram uploads: the pixel gather and masks, the
         schedule tensors, the pixel map (leaf_pix and pix_inv), the
-        Laplace grid and the row map; in grid mode the wave plans of the
-        dense decode, or, at shapes with no dense lattice (under ~32 px a
-        side), the grid lane steps of kernel D; in the parallel and parity
-        modes the lane steps and the stream permutation. An unknown mode
-        raises ValueError (schedule.build_schedule)."""
+        Laplace grid and the row map; in grid mode the wave table
+        (grid_decode.grid_waves), or, at shapes whose lattice has no exact
+        parent maps (under ~32 px a side), the grid lane steps of kernel D;
+        in the parallel and parity modes the lane steps and the stream
+        permutation. An unknown mode raises ValueError
+        (schedule.build_schedule)."""
         self = cls()
         dev = resolve_device(device)
         depth = BASE_FRAC_DEPTH
@@ -394,7 +405,7 @@ class CodecProgram:
         waves = None
         if mode == "grid":
             try:
-                waves = get_wave_devs(geo, sched, nl, n_slots, dev)
+                waves = grid_waves(geo, sched, nl, dev)
             except DenseGridUnavailable:
                 pass  # tiny shapes: the step tensors below decode the same wire
         self.waves = waves
@@ -445,23 +456,25 @@ class CodecProgram:
         return exp(vp_np), exp(wp_np), bool(use_w)
 
     def _fit_samples(self, put, strided: bool):
-        """The fit samples of every predictor group on the device: (tap
-        slots [n, 6], target slots [n], the groups' sample counts), the
-        groups' schedule ranges in order. Every HF symbol of a group, or,
-        strided (grid mode's statistics from GRID_ENC_MIN_K symbols up, as
-        grid_decode.build_grid_encode subsamples), every fit_stride-th
-        symbol of its range (a grid wave, in raster order)."""
+        """The fit samples of every predictor group: (tap slots [n, 6] and
+        target slots [n] on the device, the schedule indices [n_g] of each
+        group on the host), the groups' schedule ranges in order. Every HF
+        symbol of a group, or, strided (grid mode's statistics from
+        GRID_ENC_MIN_K symbols up, as the JAX program's dense grid
+        statistics subsample), every fit_stride-th symbol of its range (a
+        grid wave, in raster order)."""
         ks = [np.arange(lo, hi, fit_stride(hi - lo) if strided else 1)
               for lo, hi in self.group_ranges]
         idx = np.concatenate(ks)
-        return put(self.snbr_safe[idx]), put(self.sc[idx]), [k.shape[0] for k in ks]
+        return put(self.snbr_safe[idx]), put(self.sc[idx]), ks
 
     def _stats(self, qplane, overrides, strided: bool):
         """The statistics of qplane [rows, n_slots + 1], a row one (image,
         channel) of a batch: the fit samples' taps and targets in one
         gather, the per-group fits, then every symbol's bucket and zig-zag
         symbol in one launch of kernel W (ops/wave_ctx.py)."""
-        taps, target, sizes = self.fit_samples[strided]
+        taps, target, ks = self.fit_samples[strided]
+        sizes = [k.shape[0] for k in ks]
         Xs_l = torch.split(qplane[:, taps], sizes, dim=1)
         ys_l = torch.split(qplane[:, target], sizes, dim=1)
         vparams, wparams = fit_predictors(Xs_l, ys_l, overrides)
@@ -476,7 +489,8 @@ class CodecProgram:
 
     def _grid_stats(self, qplane, overrides):
         """The statistics with grid mode's subsampled fits (the JAX
-        program's build_grid_encode.stats; FRAVE_FIT_CAP)."""
+        program's dense grid statistics, frave_tpu/codec/grid_decode.py
+        :598; FRAVE_FIT_CAP)."""
         return self._stats(qplane, overrides, strided=True)
 
     def encode_exec(self, pixels, qdiv, overrides=None, tids=None, stages=None):
@@ -594,7 +608,7 @@ class CodecProgram:
         of ops/step_decode.decode_steps over this program's step operands:
         (x, gptr, steps, vparams, wparams, stream, tabs, n_slots)."""
         if self.steps is None:
-            raise ValueError("this program decodes with the dense grid waves, not steps")
+            raise ValueError("this program decodes with the grid waves, not steps")
         tabs = wire_tables(self.lap, wire_bits, offpk, scales)
         gptr = torch.zeros((states.shape[0],), dtype=_I64, device=self.device)
         return (states, gptr, self.steps, vparams, wparams, stream, tabs, self.n_slots)

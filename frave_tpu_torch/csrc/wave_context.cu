@@ -4,7 +4,7 @@
 // Replace the device work that XLA fused around the rANS rows in
 // frave_tpu/codec/grid_decode.py decode_fused_grid (:326; the tap planes,
 // contexts and packing of ctx_of, to_grid and scatter_coefs, :403-471),
-// build_grid_encode.stats (:598) and frave_tpu/codec/pipeline_jax.py
+// the dense grid statistics (:598) and frave_tpu/codec/pipeline_jax.py
 // step_stats (:469). The JAX package computed a wave's six context taps as
 // unit shifts of dense lattice grids, because gathers were costly on the
 // TPU. Every tap is a coefficient slot the schedule already names

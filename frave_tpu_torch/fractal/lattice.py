@@ -1,20 +1,21 @@
-"""Per-level dense lattice grids: the gather-free coefficient layout.
+"""Per-level dense lattice grids: the grid schedule's coefficient layout.
 
-The port's copy of frave_tpu/fractal/lattice.py. Every tree level's node
-positions form (a coset of) a 2D integer lattice (s = depth - level): the
-six neighbour directions of geometry.nearby_vectors are lattice vectors,
-and the parent level's positions are an index-2 sublattice. Storing each
-level's coefficients in a dense [A, B] array indexed by lattice
-coordinates turns the 6-tap context neighbour reads into unit-shift
-slices, the parent->child value broadcast into a polyphase interleave of
-two unimodular grid transforms (fractal/gridplan.py), and lane extraction
-into one static gather per wave.
+The port's copy of the parts of frave_tpu/fractal/lattice.py that the
+port's path reaches: the grids (build_lattice_grids, get_lattice_grids)
+and DenseGridUnavailable. Every tree level's node positions form (a
+coset of) a 2D integer lattice (s = depth - level): the six neighbour
+directions of geometry.nearby_vectors are lattice vectors, and the
+parent level's positions are an index-2 sublattice. The grid schedule
+(fractal/schedule.py) orders each wave's symbols by the raster order of
+its level's dense [A, B] grid, and a program decodes whole waves only
+where every level's child -> parent cell map is exactly affine on each
+residue class (fixups not None); elsewhere (tiny shapes) it decodes
+through kernel D's step tensors.
 
 The reference codec's scale-2 conditional neighbour fixups break pure
 shift structure for a boundary-proportional handful of nodes; those are
-recorded as explicit correction lists and applied as a (tiny) gather
-after the shifted reads. Everything here is host-side numpy, computed
-once per (h, w, depth) and verified cell by cell against
+recorded as explicit correction lists. Everything here is host-side
+numpy, computed once per (h, w, depth) and verified cell by cell against
 geometry.nbr_par.
 """
 
@@ -93,10 +94,10 @@ def _solve_coords(basis: np.ndarray, rel: np.ndarray) -> np.ndarray:
 
 
 class DenseGridUnavailable(Exception):
-    """No exact parent polyphase maps at this (tiny) shape — the dense
-    grid path cannot be built (the port raises NotImplementedError on it:
-    the step-tensor decoder such shapes need is not ported). Deliberately
-    not AssertionError, so genuine consistency failures stay distinct."""
+    """No exact parent polyphase maps at this (tiny) shape: the program
+    has no wave table (codec/grid_decode.grid_waves) and decodes through
+    kernel D's step tensors. Deliberately not AssertionError, so genuine
+    consistency failures stay distinct."""
 
 
 @dataclasses.dataclass
@@ -177,8 +178,8 @@ def _fit_parent_classes(
     class, with the smallest m in {2, 4} that is exact everywhere.
     Returns (0, None) when no exact fit exists — tiny boundary-dominated
     shapes (< ~32 px a side) have too few cells per class; the schedule
-    and wire layout do not need these maps, only the dense decode path
-    does (build_wave_plans raises)."""
+    and wire layout do not need these maps; a program builds its wave
+    table only where they exist (grid_decode.grid_waves raises)."""
     for m in (2, 4):
         out: Dict[Tuple[int, int], AffineMap] = {}
         ok = True
@@ -395,180 +396,6 @@ def build_lattice_grids(geo: FractalGeometry) -> LatticeGrids:
     return LatticeGrids(
         height=geo.height, width=geo.width, depth=depth, grids=grids, fixups=fix
     )
-
-
-@dataclasses.dataclass
-class WavePlanMeta:
-    """Device-ready metadata for one grid-mode decode/encode wave."""
-
-    wave: int
-    kind: str  # "dcA" | "dcB" | "root" | "hf"
-    level: int  # tree level (0 for phases)
-    shape: Tuple[int, int]
-    active: np.ndarray  # [A, B] bool — cells carrying a symbol
-    tap_valid: np.ndarray  # [6, A, B] bool
-    tap_shift: np.ndarray  # [6, 2] int64
-    slot_grid: np.ndarray  # [A, B] int64 flat coef slot written, -1 none
-    group: int  # fine predictor group id
-    fbkt: int  # fixed context bucket, -1 = computed
-    # parent-value broadcast (hf waves): per residue class (r1, r2) a
-    # GridPlan reading the parent VALUE grid; phases read their own
-    # tile grid directly (classes is empty, m == 1)
-    m: int
-    classes: List[Tuple[int, int, object]]
-    # post-shift corrections: tap_grid.flat[fix_tgt] = parentV.flat[fix_src]
-    fix_tap: np.ndarray  # [F] int64 tap index
-    fix_tgt: np.ndarray  # [F] int64 flat cell in this grid
-    fix_src: np.ndarray  # [F] int64 flat cell in the parentV grid (same
-    # shape as this grid — corrections are applied AFTER the broadcast)
-
-
-def build_wave_plans(geo: FractalGeometry, lg: LatticeGrids) -> List[WavePlanMeta]:
-    """Assemble per-wave grid metadata for the dense (gather-free)
-    device pipelines. Wave order and symbol sets MATCH
-    schedule._build_schedule_grid exactly (differentially tested)."""
-    from ..entropy.tables import CONTEXT_AMOUNT
-    from .gridplan import plan_affine_take
-
-    if lg.fixups is None:
-        raise DenseGridUnavailable(
-            "no exact parent polyphase maps at this shape — dense "
-            "grid decode unavailable"
-        )
-
-    depth = geo.depth
-    n = geo.nodes_per_tile
-    flat_mask = geo.coef_mask.reshape(-1)
-    out: List[WavePlanMeta] = []
-
-    tg = lg.grids[0]
-    At, Bt = tg.shape
-    occ_t = tg.occ
-    aa, bb = np.meshgrid(
-        np.arange(At, dtype=np.int64),
-        np.arange(Bt, dtype=np.int64),
-        indexing="ij",
-    )
-    apar = ((aa + bb) % 2 == 0) & occ_t
-
-    def shifted_occ(grid_occ, shift, extra=None):
-        """occupancy of cell + shift (False off-grid), optionally ANDed
-        with another grid at the shifted cell."""
-        A, B = grid_occ.shape
-        src = grid_occ if extra is None else (grid_occ & extra)
-        outg = np.zeros((A, B), dtype=bool)
-        s0, s1 = int(shift[0]), int(shift[1])
-        i0, i1 = max(0, -s0), min(A, A - s0)
-        j0, j1 = max(0, -s1), min(B, B - s1)
-        if i1 > i0 and j1 > j0:
-            outg[i0:i1, j0:j1] = src[i0 + s0 : i1 + s0, j0 + s1 : j1 + s1]
-        return outg
-
-    # ---- wave 0: DC phase A (context-free)
-    out.append(
-        WavePlanMeta(
-            wave=0, kind="dcA", level=0, shape=(At, Bt), active=apar,
-            tap_valid=np.zeros((6, At, Bt), dtype=bool),
-            tap_shift=tg.tap_shift.copy(),
-            slot_grid=np.where(apar, tg.slot, -1),
-            group=0, fbkt=CONTEXT_AMOUNT - 1,
-            m=1, classes=[],
-            fix_tap=np.zeros(0, np.int64), fix_tgt=np.zeros(0, np.int64),
-            fix_src=np.zeros(0, np.int64),
-        )
-    )
-    # ---- wave 1: DC phase B (taps = A-parity neighbour DCs)
-    bsel = occ_t & ~apar
-    tv = np.stack(
-        [shifted_occ(apar, tg.tap_shift[k]) for k in range(6)]
-    ) & bsel[None]
-    out.append(
-        WavePlanMeta(
-            wave=1, kind="dcB", level=0, shape=(At, Bt), active=bsel,
-            tap_valid=tv, tap_shift=tg.tap_shift.copy(),
-            slot_grid=np.where(bsel, tg.slot, -1),
-            group=1, fbkt=-1, m=1, classes=[],
-            fix_tap=np.zeros(0, np.int64), fix_tgt=np.zeros(0, np.int64),
-            fix_src=np.zeros(0, np.int64),
-        )
-    )
-    # ---- wave 2: root-HF (taps = all neighbour DCs)
-    tv = np.stack(
-        [shifted_occ(occ_t, tg.tap_shift[k]) for k in range(6)]
-    ) & occ_t[None]
-    out.append(
-        WavePlanMeta(
-            wave=2, kind="root", level=0, shape=(At, Bt), active=occ_t,
-            tap_valid=tv, tap_shift=tg.tap_shift.copy(),
-            slot_grid=np.where(occ_t, tg.slot + 1, -1),
-            group=2, fbkt=-1, m=1, classes=[],
-            fix_tap=np.zeros(0, np.int64), fix_tgt=np.zeros(0, np.int64),
-            fix_src=np.zeros(0, np.int64),
-        )
-    )
-
-    # ---- HF level waves
-    fix = lg.fixups
-    for L in range(1, depth):
-        g = lg.grids[L]
-        gp = lg.grids[L - 1]
-        A, B = g.shape
-        m = g.parent_mod
-        active = np.zeros((A, B), dtype=bool)
-        slot_grid = np.full((A, B), -1, dtype=np.int64)
-        occ_cells = g.occ
-        slots_all = g.slot
-        sym_sel = occ_cells & (slots_all >= 0)
-        sym_sel &= np.where(slots_all >= 0, flat_mask[np.clip(slots_all, 0, None)], False)
-        active[:] = sym_sel
-        slot_grid = np.where(sym_sel, slots_all, -1)
-
-        # tap validity straight from the verified semantics: valid iff
-        # nbr_par >= 0 — scattered onto the grid
-        tvalid = np.zeros((6, A, B), dtype=bool)
-        cc = g.coords
-        nslots = g.slot[cc[:, 0], cc[:, 1]]
-        npar = geo.nbr_par[nslots]  # [N, 6]
-        for k in range(6):
-            tvalid[k, cc[:, 0], cc[:, 1]] = npar[:, k] >= 0
-
-        classes = []
-        for (r1, r2), am in sorted(g.parent_map.items()):
-            Ihat = -(-(A - r1) // m)
-            Jhat = -(-(B - r2) // m)
-            c_cls = am.M @ np.asarray([r1, r2], np.int64) + am.c
-            assert (c_cls % am.den == 0).all()
-            plan = plan_affine_take(
-                gp.shape, am.M, c_cls // am.den, (Ihat, Jhat)
-            )
-            classes.append((r1, r2, plan))
-
-        # fixups for this level, rebased to flat cells; the source is a
-        # PARENT-GRID cell; we pre-apply the parent broadcast so the
-        # correction source is parentV-at-a-cell-of-THIS grid... the
-        # stored fix_src indexes the PARENT grid directly; the device
-        # applies corrections from the parent value grid.
-        sel = fix[:, 0] == L
-        frows = fix[sel]
-        ok_src = frows[:, 4] >= 0
-        frows = frows[ok_src]  # absent-source rows are already masked
-        fix_tgt = frows[:, 1] * B + frows[:, 2]
-        fix_tap = frows[:, 3]
-        fix_src = frows[:, 4] * gp.shape[1] + frows[:, 5]
-
-        group = 3 + (L - 1)
-        out.append(
-            WavePlanMeta(
-                wave=2 + L, kind="hf", level=L, shape=(A, B),
-                active=active, tap_valid=tvalid,
-                tap_shift=g.tap_shift.copy(), slot_grid=slot_grid,
-                group=group, fbkt=-1, m=m, classes=classes,
-                fix_tap=fix_tap.astype(np.int64),
-                fix_tgt=fix_tgt.astype(np.int64),
-                fix_src=fix_src.astype(np.int64),
-            )
-        )
-    return out
 
 
 _cache: Dict[Tuple[int, int, int], LatticeGrids] = {}

@@ -390,7 +390,8 @@ def program(h: int, w: int, c: int, device, mode: str = "grid"):
 
 
 def largest_wave(prog):
-    """(k0, kw, nl) and the WaveDev of the program's largest grid wave."""
+    """(k0, kw, nl) and the grid_decode.Wave of the program's largest grid
+    wave."""
     from .codec.grid_decode import wave_starts
 
     wd, k0 = max(zip(prog.waves, wave_starts(prog.waves)), key=lambda t: t[0].kw)
@@ -435,7 +436,8 @@ def wave_problem(rng, shape, kind, device, images: int = 0):
     if pk == "valid":
         from .codec.pipeline_torch import fit_predictors
 
-        taps, target, sizes = prog.fit_samples[False]
+        taps, target, ks = prog.fit_samples[False]
+        sizes = [k.shape[0] for k in ks]
         vp, wp = fit_predictors(torch.split(rows[:, taps], sizes, dim=1),
                                 torch.split(rows[:, target], sizes, dim=1), None)
     else:

@@ -3,7 +3,7 @@ kernels W and V (csrc/wave_context.cu) with their plain versions.
 
 Replaces the device work that XLA fused in frave_tpu/codec/grid_decode.py
 decode_fused_grid (:326; ctx_of, to_grid and scatter_coefs, :403-471),
-build_grid_encode.stats (:598) and frave_tpu/codec/pipeline_jax.py
+the dense grid statistics (:598) and frave_tpu/codec/pipeline_jax.py
 step_stats (:469). The JAX package computed each wave's six context taps
 as unit shifts of dense lattice grids (gathers were costly on the TPU).
 Every tap is a coefficient slot that the schedule already names

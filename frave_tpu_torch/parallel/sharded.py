@@ -17,7 +17,7 @@ others in the Mesh's collectives (mesh.py):
     over its window of the lanes; the words go to the tp group's first
     rank, which compacts and packs the containers. Every rank returns all
     B containers. The fits use the one-card encode's samples (every HF
-    symbol of a group, or the dense path's subsample where the one-card
+    symbol of a group, or the strided subsample where the one-card
     program takes it), and the value Grams of integer taps are exact in
     float64 in any order, so a container equals the one-card encode's.
   * ShardedDecoder — images over every rank (pure dp, no collective but
@@ -216,22 +216,14 @@ def encode_plan(height: int, width: int, tp: int, depth: int = BASE_FRAC_DEPTH,
 
 def fit_samples(prog) -> np.ndarray:
     """[F, K] bool in schedule order: the symbols each predictor group's
-    fit reads in the one-card encode of `prog` — every HF symbol of the
-    group (the step-tensor statistics), or, where the program takes the
-    dense shift-plane statistics, every fit_stride-th symbol of the
-    group's wave in lane order."""
-    K, F = prog.num_symbols, prog.num_fine
-    m = np.zeros((F, K), dtype=bool)
-    if prog.grid_enc is not None:
-        k0 = 0
-        for g, wd in enumerate(prog.waves):
-            m[g, k0 + np.arange(0, wd.kw, GD.fit_stride(wd.kw))] = True
-            k0 += wd.kw
-        if k0 != K:
-            raise AssertionError("the waves do not cover the schedule")
-    else:
-        for g, (lo, hi) in enumerate(prog.group_ranges):
-            m[g, lo:hi] = True
+    fit reads in the one-card encode of `prog`, the schedule indices its
+    statistics gather (CodecProgram.fit_samples: every HF symbol of the
+    group, or, where the program takes the strided fits, every
+    fit_stride-th symbol of the group's range)."""
+    _, _, ks = prog.fit_samples[prog.grid_enc is not None]
+    m = np.zeros((prog.num_fine, prog.num_symbols), dtype=bool)
+    for g, k in enumerate(ks):
+        m[g, k] = True
     return m
 
 
@@ -468,7 +460,7 @@ class TPShardedDecoder:
                                                             self.channels))
 
     def _grid(self, prog, x, stream, vparams, wparams, tabs, rtabs, image, lo, local):
-        """The dense-grid decode with lanes split: per wave one kernel W
+        """The grid decode with lanes split: per wave one kernel W
         launch (the wave's contexts on every rank, the buckets of this
         rank's lanes in kernel 3T's [rows, C, NL/n] layout), per row one
         kernel 3T launch and the [n, C] count gather, per wave one symbols

@@ -55,8 +55,8 @@ def _default_nl(h, w):
 
 
 # (h, w, c, images, FRAVE_GRID_ENC): 64x64 gray at B = 3; 96x80 RGB at
-# B = 2 whose images pick different transforms (3 and 0); the dense
-# shift-plane statistics at B = 2
+# B = 2 whose images pick different transforms (3 and 0); the
+# strided-fit statistics at B = 2
 BATCH_CASES = [(64, 64, 1, 3, "1"), (96, 80, 3, 2, "1"), (64, 64, 1, 2, "force")]
 
 

@@ -1,7 +1,7 @@
 """The slice cross-checks of test_torch_pipeline.py (check_slice) with
-FRAVE_GRID_ENC=force: the dense shift-plane encode statistics
-(grid_decode.build_grid_encode) at 96x80, gray and RGB, with a fit cap
-small enough that the largest waves are subsampled. A separate file so
+FRAVE_GRID_ENC=force: grid mode's statistics with strided fits
+(CodecProgram._grid_stats) at 96x80, gray and RGB, with a fit cap small
+enough that the largest waves are subsampled. A separate file so
 the JAX compiles of these cases run on another test worker."""
 
 import numpy as np
@@ -17,7 +17,7 @@ def test_grid_encode_slice_matches_frave_tpu(env, c, seed):  # noqa: F811
 
 @pytest.mark.parametrize("quality", ["HIGH", "LOW"])
 def test_grid_encode_rgb_lossy_matches_frave_tpu(env, quality):  # noqa: F811
-    """RGB lossy on the dense shift-plane statistics, with the clamped
+    """RGB lossy on the strided-fit statistics, with the clamped
     subtract-green transform: pinned to frave_tpu's fit, the container is
     byte-equal to frave_tpu's; unpinned, each package decodes the other's
     container to the pixels its own decoder gives."""

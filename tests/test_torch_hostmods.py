@@ -1,13 +1,16 @@
 """The port's copies of frave_tpu's host modules against the originals.
 
 frave_tpu_torch keeps its own copies of the numpy host modules it needs
-(geometry, lattice grids, grid plans, the grid schedule, host context
-tables, the channel-transform choice, the container and the options), so
-that it imports nothing of frave_tpu. Here the same inputs go through both
+(geometry, lattice grids, the grid schedule, host context tables, the
+channel-transform choice, the container and the options), so that it
+imports nothing of frave_tpu. Here the same inputs go through both
 and every array must be equal: at 64x64, 96x80, 256x256 and 512x512, gray
 and RGB where the function sees channels; the schedules of every mode, their
 decode steps and stream permutations also at the tiny shapes 16x16, 1x1,
 2x511 and 511x2. Every field of the port's dataclasses is compared.
+
+The port's grid wave table against frave_tpu's wave constants, and the
+shapes with and without one.
 
 Also: the port's container gives back frave_tpu's bytes for the six golden
 fixtures, and tests/data/torch_port_refs.json (the hashes chip_smoke.py
@@ -23,19 +26,20 @@ import numpy as np
 import pytest
 
 from frave_tpu.codec import channel_transform as CTJ
+from frave_tpu.codec import grid_decode as GDJ
 from frave_tpu.codec import container as CJ
 from frave_tpu.codec import options as OJ
 from frave_tpu.entropy import tables as HJ
 from frave_tpu.fractal import geometry as GJ
-from frave_tpu.fractal import gridplan as GPJ
 from frave_tpu.fractal import lattice as LJ
 from frave_tpu.fractal import schedule as SJ
 from frave_tpu_torch.codec import channel_transform as CTT
+from frave_tpu_torch.codec import grid_decode as GDT
+from frave_tpu_torch.codec import pipeline_torch as PT
 from frave_tpu_torch.codec import container as CT
 from frave_tpu_torch.codec import options as OT
 from frave_tpu_torch.entropy import tables as HT
 from frave_tpu_torch.fractal import geometry as GT
-from frave_tpu_torch.fractal import gridplan as GPT
 from frave_tpu_torch.fractal import lattice as LT
 from frave_tpu_torch.fractal import schedule as ST
 from frave_tpu_torch.testing import natural_image
@@ -134,34 +138,49 @@ def test_layer_waves_matches(seed):
 @pytest.mark.parametrize("h,w", SHAPES)
 def test_lattice_grids_and_wave_plans_match(h, w):
     """The lattice grids (bases, occupancy, slots, tap shifts, parent
-    polyphase maps, scale-2 fixups) and the per-wave plans, GridPlans
-    included."""
+    polyphase maps, scale-2 fixups), and the port's wave table (built from
+    the schedule's wave sizes) against frave_tpu's wave constants (built
+    from its lattice wave plans): each wave's symbol count, rows and live
+    lanes, and its schedule slots against frave_tpu's wslot."""
     lp, lj = LT.get_lattice_grids(h, w), LJ.get_lattice_grids(h, w)
     assert_same(lp, lj)
-    plans_p = LT.build_wave_plans(GT.get_geometry(h, w), lp)
-    plans_j = LJ.build_wave_plans(GJ.get_geometry(h, w), lj)
-    assert_same(plans_p, plans_j)
-    gathers = sum(p.gathers for wp in plans_p for _, _, p in wp.classes)
-    assert gathers == sum(p.gathers for wp in plans_j for _, _, p in wp.classes)
+    geo, sched = GT.get_geometry(h, w), ST.get_schedule(h, w, mode="grid")
+    nl = ST.default_num_lanes(sched.num_symbols)
+    waves = GDT.grid_waves(geo, sched, nl, "cpu")
+    waves_j = GDJ.get_wave_devs(GJ.get_geometry(h, w), SJ.get_schedule(h, w, mode="grid"), nl,
+                                geo.num_tiles * geo.nodes_per_tile)
+    assert len(waves) == len(waves_j)
+    for i, (wd, wj, k0) in enumerate(zip(waves, waves_j, GDT.wave_starts(waves))):
+        assert (wd.kw, wd.rows) == (wj.kw, wj.rows), i
+        np.testing.assert_array_equal(wd.active_rows.numpy(), np.asarray(wj.active_rows),
+                                      err_msg=str(i))
+        np.testing.assert_array_equal(sched.sched_coef[k0:k0 + wd.kw], np.asarray(wj.wslot),
+                                      err_msg=str(i))
 
 
-@pytest.mark.parametrize("seed", range(4))
-def test_affine_grid_plans_match(seed):
-    """plan_affine_take on random unimodular and index-2 maps: the same op
-    lists, and the same values when executed."""
-    rng = np.random.default_rng(seed)
-    for _ in range(6):
-        while True:
-            M = rng.integers(-3, 4, size=(2, 2))
-            if abs(int(round(np.linalg.det(M)))) in (1, 2):
-                break
-        c = rng.integers(-5, 6, size=2)
-        src = (int(rng.integers(3, 12)), int(rng.integers(3, 12)))
-        out = (int(rng.integers(2, 10)), int(rng.integers(2, 10)))
-        pp, pj = GPT.plan_affine_take(src, M, c, out), GPJ.plan_affine_take(src, M, c, out)
-        assert_same(pp, pj)
-        arr = rng.integers(0, 100, size=src)
-        np.testing.assert_array_equal(GPT.apply_plan(pp, arr), GPJ.apply_plan(pj, arr))
+@pytest.mark.parametrize("h,w,dense_expected", [(16, 16, False), (31, 17, False), (32, 32, False),
+                                                (2, 511, True), (64, 64, True), (96, 80, True)])
+def test_grid_waves_exactly_where_frave_tpu_has_dense_grids(h, w, dense_expected):
+    """A grid program decodes by waves exactly where frave_tpu builds its
+    dense wave constants (a 2-pixel strip among them), and through kernel
+    D's step tensors where frave_tpu's get_wave_devs raises
+    DenseGridUnavailable (tiny shapes, 32x32 among them)."""
+    sched = ST.get_schedule(h, w, mode="grid")
+    nl = ST.default_num_lanes(sched.num_symbols)
+    geo = GJ.get_geometry(h, w)
+    try:
+        GDJ.get_wave_devs(geo, SJ.get_schedule(h, w, mode="grid"), nl,
+                          geo.num_tiles * geo.nodes_per_tile)
+        dense = True
+    except LJ.DenseGridUnavailable:
+        dense = False
+    assert dense == dense_expected
+    prog = PT.CodecProgram.from_host(h, w, nl, 1, "cpu")
+    assert (prog.waves is not None) == dense
+    assert (prog.steps is None) == dense
+    if not dense:
+        with pytest.raises(LT.DenseGridUnavailable):
+            GDT.grid_waves(GT.get_geometry(h, w), sched, nl, "cpu")
 
 
 @pytest.mark.parametrize("seed", range(3))

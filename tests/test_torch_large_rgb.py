@@ -22,7 +22,6 @@ import torch
 
 import frave_tpu_torch
 from frave_tpu_torch.codec import channel_transform as CT
-from frave_tpu_torch.codec import grid_decode as GD
 from frave_tpu_torch.codec import pipeline_torch as PT
 from frave_tpu_torch.codec.container import deserialize
 from frave_tpu_torch.fractal.schedule import default_num_lanes, get_schedule
@@ -42,8 +41,8 @@ def test_the_large_shape_takes_the_strided_branches():
     sched = get_schedule(H, W)
     assert sched.num_symbols >= PT.GRID_ENC_MIN_K
     prog = PT.get_program(H, W, default_num_lanes(sched.num_symbols), 3, "cpu", "grid")
-    capped = {hi - lo: GD.fit_stride(hi - lo) for lo, hi in prog.group_ranges
-              if GD.fit_stride(hi - lo) > 1}
+    capped = {hi - lo: PT.fit_stride(hi - lo) for lo, hi in prog.group_ranges
+              if PT.fit_stride(hi - lo) > 1}
     assert capped == {393_728: 4, 197_312: 2}
 
 

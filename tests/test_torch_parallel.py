@@ -11,7 +11,8 @@ two. The JAX side runs here, in the test process only.
     ShardedEncoder._halo plan, and the halo rides point-to-point rings;
   * sharded containers (32x32 gray, 24x40 RGB; lossless and HIGH; grid,
     parallel and parity) are byte-equal to the port's one-card encode, and decode
-    on frave_tpu's numpy and jax decoders;
+    on frave_tpu's numpy and jax decoders; the sharded fits' samples are
+    the one-card program's, strided (96x80 RGB under a fit cap) and not;
   * ShardedDecoder and TPShardedDecoder give frave_tpu's pixels on
     containers frave_tpu encoded; the grid tp decode exchanges only the
     [n, C] int32 renorm counts a row and one values gather a wave.
@@ -36,9 +37,9 @@ from frave_tpu_torch import EncoderOptions, EncoderQuality, RasterImage
 from frave_tpu_torch import kernel_check as KC
 from frave_tpu_torch.codec import pipeline_torch as PT
 from frave_tpu_torch.codec.container import serialize
-from frave_tpu_torch.fractal.schedule import get_lane_steps
+from frave_tpu_torch.fractal.schedule import default_num_lanes, get_lane_steps, get_schedule
 from frave_tpu_torch.parallel import mesh_factorization
-from frave_tpu_torch.parallel.sharded import encode_plan
+from frave_tpu_torch.parallel.sharded import encode_plan, fit_samples
 from frave_tpu_torch.parallel.world import launch
 
 # (label, images, mode, quality) of the encode legs; images: (B, h, w, c, seed)
@@ -221,6 +222,36 @@ def test_sharded_containers_equal_one_card(run, world, label, mode, q):
     got = [(d / world / f"{label}_{mode}_{q}" / f"{i}.frv").read_bytes()
            for i in range(IMAGES[label][0])]
     assert got == _one_card(label, mode, q)
+
+
+@pytest.mark.parametrize("h,w,c,env", [
+    (96, 80, 3, {"FRAVE_GRID_ENC": "force", "FRAVE_FIT_CAP": "700"}),
+    (64, 64, 1, {}),
+])
+def test_fit_samples_mark_the_targets_the_program_fits_gather(monkeypatch, h, w, c, env):
+    """sharded.fit_samples marks exactly the symbols whose targets the
+    one-card program's fits gather, group by group: every fit_stride-th
+    of each group's range where the program takes the strided fits (96x80
+    RGB under a fit cap of 700), every HF symbol otherwise (64x64 gray)."""
+    for k in ("FRAVE_GRID_ENC", "FRAVE_FIT_CAP"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    prog = PT.CodecProgram.from_host(h, w, default_num_lanes(get_schedule(h, w).num_symbols), c,
+                                     "cpu")
+    strided = prog.grid_enc is not None
+    assert strided == bool(env)
+    m = fit_samples(prog)
+    assert m.shape == (prog.num_fine, prog.num_symbols)
+    _, target, ks = prog.fit_samples[strided]
+    assert [int(n) for n in m.sum(axis=1)] == [k.shape[0] for k in ks]
+    marked = np.concatenate([np.nonzero(row)[0] for row in m])
+    np.testing.assert_array_equal(prog.sc[marked], target.numpy())
+    full = [hi - lo for lo, hi in prog.group_ranges]
+    assert (m.sum(axis=1) < full).any() == strided
+    for g, (lo, hi) in enumerate(prog.group_ranges):
+        np.testing.assert_array_equal(np.nonzero(m[g])[0],
+                                      np.arange(lo, hi, PT.fit_stride(hi - lo) if strided else 1))
 
 
 @pytest.mark.parametrize("label,mode,q", ENCODES)

@@ -1,8 +1,8 @@
 """The frave_tpu_torch slice end to end against frave_tpu, on the CPU.
 
 Grid mode, LOSSLESS, gray and RGB, at 64x64 and 96x80 (both below the
-K = 2^18 statistics gate, so the step-tensor statistics run; the dense
-shift-plane statistics run in test_torch_grid_encode.py, which reuses
+K = 2^18 statistics gate, so the step-tensor statistics run; the
+strided-fit statistics run in test_torch_grid_encode.py, which reuses
 check_slice). Environment knobs are monkeypatched for both packages and
 their program caches cleared around each case.
 

@@ -1,6 +1,7 @@
 """Kernels W and V's plain versions (frave_tpu_torch/ops/wave_ctx.py: the
 contexts from the schedule records, the wave's values into the plane)
-against the dense wave chain, on the CPU, bit-equal.
+against frave_tpu's dense wave chain and direct references, on the CPU,
+bit-equal.
 
 Shapes 64x64 gray, 96x80 RGB and 256x256 gray, with FRAVE_GRID_ENC=force
 and a fit cap that subsamples the largest waves (FRAVE_FIT_CAP=700, as
@@ -11,18 +12,18 @@ package's functions run as its own tests run them on the CPU.
   * the decode mode of W, wave by wave, on a plane that holds only the
     waves before it (as a decode holds it), against frave_tpu's dense chain
     (grid_decode._tap_planes / _broadcast_parent / _pack_tap_vals, then
-    jax_ops.contexts_static and the fixed bucket) and the port's
-    grid_decode.wave_chain: buckets in kernel 3's layout (zero past the
-    wave) and predictions; every wave, the DC phases (waves 0 and 1) and
-    the waves with scale-2 fixups among them; on the coefficients and on
-    garbage values;
+    jax_ops.contexts_static and the fixed bucket): buckets in kernel 3's
+    layout (zero past the wave) and predictions; every wave, the DC phases
+    (waves 0 and 1) and the waves with scale-2 fixups among them; on the
+    coefficients and on garbage values;
   * the encode mode of W and the statistics: buckets and symbols against
     frave_tpu's build_grid_encode.stats and its step_stats (jax_ops.contexts
     over the same taps), pinned to the same parameters; the port's fits,
-    buckets and symbols against its dense build_grid_encode and its
-    step-tensor statistics as they ran before the records;
-  * V against the dense chain's scatter, and a whole grid decode through
-    W, kernel 3 and V against the dense chain's decode: the plane and the
+    buckets and symbols against a direct computation (the strided or full
+    fits over the gathered taps, torch_ops.contexts over every symbol);
+  * V against the scatter at the wave's schedule slots, and a whole grid
+    decode through W, kernel 3 and V against the plain kernel D over the
+    grid lane steps of the same shape, then kernel B: the plane and the
     pixels, on a container's stream and on garbage.
 """
 
@@ -43,10 +44,10 @@ from frave_tpu_torch.codec import grid_decode as GD
 from frave_tpu_torch.codec import pipeline_torch as PT
 from frave_tpu_torch.codec.options import EncoderOptions
 from frave_tpu_torch.fractal.geometry import get_geometry
-from frave_tpu_torch.fractal.schedule import default_num_lanes, get_schedule
+from frave_tpu_torch.fractal.schedule import default_num_lanes, get_lane_steps, get_schedule
 from frave_tpu_torch.images import RasterImage
 from frave_tpu_torch.ops import lifting as L
-from frave_tpu_torch.ops import rans_torch as RT
+from frave_tpu_torch.ops import step_decode as SD
 from frave_tpu_torch.ops import torch_ops as T
 from frave_tpu_torch.ops import wave_ctx as WC
 from test_torch_pipeline import _natural, env  # noqa: F401  (env: fixture)
@@ -132,7 +133,8 @@ def _jax_refs(h, w, c, nl, n_slots):
     the JAX package runs them): "waves" (qpad, vp, wp) -> every wave's
     (buckets, predictions) by the dense chain; "stats" build_grid_encode's
     stats (qpad, vp, wp) with both parameters pinned; "contexts"
-    step_stats' vmapped jax_ops.contexts over given taps."""
+    step_stats' vmapped jax_ops.contexts over given taps; "wave_devs" its
+    wave constants (get_wave_devs)."""
     key = (h, w, c, nl, n_slots)
     if key not in _JAX:
         geo, sched = get_geometry_j(h, w, 9), get_schedule_j(h, w, mode="grid")
@@ -144,6 +146,7 @@ def _jax_refs(h, w, c, nl, n_slots):
                                                 for i in range(len(waves))]),
             "stats": jax.jit(lambda q, vp, wp: stats(q, vp, wp, True, True)),
             "contexts": jax.jit(jax.vmap(lambda v, a, b: J.contexts(v, lf, grp, a, b))),
+            "wave_devs": waves,
         }
     return _JAX[key]
 
@@ -152,34 +155,24 @@ def _jax_refs(h, w, c, nl, n_slots):
 @pytest.mark.parametrize("h,w,c,seed", SHAPES)
 def test_wave_contexts_match_dense_chains(env, h, w, c, seed, values):  # noqa: F811
     """Every wave's buckets and predictions from the records, on the plane
-    of the waves before it, equal frave_tpu's dense chain and the port's
-    wave_chain; the pad lanes hold 0 and a lane window (the tp decoder's)
-    is the matching slice."""
+    of the waves before it, equal frave_tpu's dense chain; the pad lanes
+    hold 0 and a lane window (the tp decoder's) is the matching slice."""
     prog, qplane, vp, wp, starts = _setup(env, h, w, c, seed)
     C, nl, waves = c, prog.nl, prog.waves
     if values == "garbage":  # what a corrupt stream could decode to (10-bit for frave_tpu)
         rng = np.random.default_rng(seed)
         qplane = torch.from_numpy(rng.integers(-500, 500, size=qplane.shape).astype(np.int32))
         qplane[:, -1] = 0
-    # the port's dense chain, each wave's (buckets, predictions) recorded
-    seen = []
-
-    def scan_wave(wd, buckets, preds):
-        seen.append((buckets.to(torch.int32), preds.to(torch.int32)))
-        return qplane[:, wd.wslot]
-
-    GD.wave_chain(waves, vp, wp, torch.zeros((C, prog.n_slots), dtype=torch.int32), scan_wave)
-    dense_j = _jax_refs(h, w, c, nl, prog.n_slots)["waves"](
+    refs = _jax_refs(h, w, c, nl, prog.n_slots)
+    dense_j = refs["waves"](
         _jax_plane(qplane.numpy(), C), jnp.asarray(vp.numpy()), jnp.asarray(wp.numpy()))
-    assert any(wd.fix for wd in waves), "no wave with scale-2 fixups at this shape"
+    assert any(wj.fix for wj in refs["wave_devs"]), "no wave with scale-2 fixups at this shape"
     plane = torch.zeros_like(qplane)
     for i, (wd, k0) in enumerate(zip(waves, starts)):
         bk, pr = WC.wave_contexts(plane, prog.records, vp, wp, C, (k0, wd.kw, nl))
         assert bk.shape == (1, wd.rows, C, nl) and pr.shape == (C, wd.kw)
         flat = _unlayout(bk, wd.kw)
         assert int(flat[:, wd.kw:].abs().sum()) == 0
-        np.testing.assert_array_equal(flat[:, : wd.kw].numpy(), seen[i][0].numpy(), err_msg=str(i))
-        np.testing.assert_array_equal(pr.numpy(), seen[i][1].numpy(), err_msg=str(i))
         bj, pj = dense_j[i]
         np.testing.assert_array_equal(flat[:, : wd.kw].numpy(), np.asarray(bj), err_msg=str(i))
         np.testing.assert_array_equal(pr.numpy(), np.asarray(pj), err_msg=str(i))
@@ -189,38 +182,37 @@ def test_wave_contexts_match_dense_chains(env, h, w, c, seed, values):  # noqa: 
                                       lanes=(lo, width))
             np.testing.assert_array_equal(bw.numpy(), bk[..., lo:lo + width].numpy())
             np.testing.assert_array_equal(pw.numpy(), pr.numpy())
-        plane[:, wd.wslot] = qplane[:, wd.wslot]  # the wave decoded
+        wslot = torch.from_numpy(prog.sc[k0:k0 + wd.kw])
+        plane[:, wslot] = qplane[:, wslot]  # the wave decoded
 
 
 @pytest.mark.parametrize("h,w,c,seed", SHAPES)
 def test_stats_match_dense_and_step_stats(env, h, w, c, seed):  # noqa: F811
     """The encode mode of W against frave_tpu's build_grid_encode.stats and
     step_stats pinned to the port's parameters; the port's statistics
-    (fits, buckets, symbols) against its dense build_grid_encode and its
-    step-tensor statistics as computed before the records."""
+    (fits, buckets, symbols), strided and full, against a direct
+    computation: the bulk gather of every symbol's taps, the fits over
+    every fit_stride-th (strided) or every HF symbol of each group's
+    range, torch_ops.contexts and the fixed bucket."""
     prog, qplane, vp, wp, _ = _setup(env, h, w, c, seed)
     C, n_slots = c, prog.n_slots
     sched = get_schedule(h, w, mode="grid")
-    geo = get_geometry(h, w, 9)
 
-    # the dense reference (subsampled fits) and the records' statistics
-    ref = GD.build_grid_encode(prog, geo, sched, prog.waves)(qplane, None)
-    got = prog._grid_stats(qplane, None)
-    for a, b in zip(got, ref):
-        assert a.dtype == b.dtype or a.dtype == torch.int32
-        np.testing.assert_array_equal(a.numpy(), b.to(a.dtype).numpy())
-    # the step-tensor statistics as they were: the bulk gather, every HF
-    # symbol in its group's fit, torch_ops.contexts and the fixed bucket
     vals = qplane[:, torch.from_numpy(prog.snbr_safe)]
     target = qplane[:, torch.from_numpy(prog.sc)]
-    vs, ws = PT.fit_predictors([vals[:, lo:hi] for lo, hi in prog.group_ranges],
-                               [target[:, lo:hi] for lo, hi in prog.group_ranges], None)
     lf, grp, fbkt = (torch.from_numpy(a) for a in (prog.slf, prog.sgrp, prog.sfbkt))
-    bk, pr = T.contexts(vals, lf, grp, vs, ws)
-    bk = torch.where(fbkt >= 0, fbkt.to(bk.dtype), bk)
-    got = prog._step_stats(qplane, None)
-    for a, b in zip(got, (vs, ws, bk, T.pack_signed(target - pr))):
-        np.testing.assert_array_equal(a.numpy(), b.to(a.dtype).numpy())
+    strided = False
+    for stats, stride in ((prog._grid_stats, PT.fit_stride), (prog._step_stats, lambda n: 1)):
+        cut = [slice(lo, hi, stride(hi - lo)) for lo, hi in prog.group_ranges]
+        strided |= any(sl.step > 1 for sl in cut)
+        vs, ws = PT.fit_predictors([vals[:, sl] for sl in cut], [target[:, sl] for sl in cut],
+                                   None)
+        bk, pr = T.contexts(vals, lf, grp, vs, ws)
+        bk = torch.where(fbkt >= 0, fbkt.to(bk.dtype), bk)
+        got = stats(qplane, None)
+        for a, b in zip(got, (vs, ws, bk, T.pack_signed(target - pr))):
+            np.testing.assert_array_equal(a.numpy(), b.to(a.dtype).numpy())
+    assert strided, "no group subsampled at this shape"
 
     # W's encode mode against frave_tpu, pinned to the port's parameters
     buckets, symbols = WC.wave_contexts(qplane, prog.records, vp, wp, C)
@@ -247,28 +239,19 @@ def test_stats_match_dense_and_step_stats(env, h, w, c, seed):  # noqa: F811
     np.testing.assert_array_equal(ps_.numpy(), symbols.numpy())
 
 
-def _old_decode(prog, states, stream, wire_bits, offpk, scpk, vparams, wparams, qdiv, tids):
-    """The dense decode as it ran before the records: grid_decode.wave_chain
-    over a [B, C, n_slots] plane, kernel 3's rows a wave, then kernel B.
-    Returns (plane, pixels)."""
-    B, C, nl = states.shape[0], prog.channels, prog.nl
+def _step_decode(prog, states, stream, wire_bits, offpk, scpk, vparams, wparams, qdiv, tids):
+    """The same wire decoded by kernel D's plain version over the grid lane
+    steps of the program's shape (a step one row of a wave), then kernel
+    B. Returns (plane [B, C, n_slots], pixels)."""
+    h, w, nl = prog.height, prog.width, prog.nl
+    sched = get_schedule(h, w, mode="grid")
+    step_map, rec = SD.step_operands_host(sched, get_lane_steps(h, w, nl, 9, "grid"),
+                                          prog.n_slots)
+    steps = SD.upload(step_map, rec, nl, "cpu")
     tabs = GD.wire_tables(prog.lap, wire_bits, offpk, scpk)
-    vparams = vparams.reshape((B * C,) + vparams.shape[2:])
-    wparams = wparams.reshape((B * C,) + wparams.shape[2:])
-    st = {"x": states, "gptr": torch.zeros((B,), dtype=torch.int64)}
-    qplane = torch.zeros((B, C, prog.n_slots), dtype=torch.int32)
-
-    def scan_wave(wd, buckets, preds):
-        if wd.rows == 0:
-            return preds.new_zeros((B * C, 0)).to(torch.int32)
-        bk = torch.nn.functional.pad(buckets.to(torch.int32), (0, wd.rows * nl - wd.kw))
-        bk = bk.reshape(B, C, wd.rows, nl).transpose(1, 2).contiguous()
-        syms, st["x"], st["gptr"] = RT.decode_scan_wave(st["x"], st["gptr"], bk, wd.active_rows,
-                                                        stream, tabs)
-        syms = syms.transpose(1, 2).reshape(B * C, wd.rows * nl)[:, : wd.kw]
-        return (T.unpack_signed(syms) + preds).to(torch.int32)
-
-    GD.wave_chain(prog.waves, vparams, wparams, qplane.view(B * C, -1), scan_wave)
+    gptr = torch.zeros((states.shape[0],), dtype=torch.int64)
+    qplane, _, _ = SD.decode_steps_plain(states, gptr, steps, vparams, wparams, stream, tabs,
+                                         prog.n_slots)
     out = L.dequantize_inverse_lift_pixels(qplane, prog.node_mask_u8, prog.leaf_mask_u8, qdiv,
                                            prog.leaf_pix, prog.pix_inv, tids)
     return qplane, out
@@ -279,8 +262,9 @@ def _old_decode(prog, states, stream, wire_bits, offpk, scpk, vparams, wparams, 
 def test_grid_decode_matches_dense_chain(env, monkeypatch, h, w, c, seed,  # noqa: F811
                                          stream_kind):
     """A batch of two containers decoded through W, kernel 3 and V equals
-    the dense chain's decode: the plane (the zero slot still 0) and the
-    pixels; on garbage streams too; V alone equals the chain's scatter."""
+    the plain kernel D's decode over the grid lane steps: the plane (the
+    zero slot still 0) and the pixels; on garbage streams too; V alone
+    equals the scatter at the wave's schedule slots."""
     imgs = [RasterImage.from_array(_natural(h, w, c, seed + i)) for i in range(2)]
     cis = PT.encode_pipeline_torch_batch(imgs, EncoderOptions(), "cpu")
     nl = cis[0].num_lanes
@@ -305,7 +289,7 @@ def test_grid_decode_matches_dense_chain(env, monkeypatch, h, w, c, seed,  # noq
 
     monkeypatch.setattr(GD, "dequantize_inverse_lift_pixels", capture)
     out = prog.decode_exec(*ops)
-    ref_plane, ref_out = _old_decode(prog, *ops)
+    ref_plane, ref_out = _step_decode(prog, *ops)
     (plane,) = planes
     assert plane.shape == (2, c, prog.n_slots + 1)
     assert int(plane[..., -1].abs().sum()) == 0
@@ -324,7 +308,8 @@ def test_grid_decode_matches_dense_chain(env, monkeypatch, h, w, c, seed,  # noq
     WC.wave_finish(syms[None], preds, prog.records, (k0, wd.kw, nl), got, c)
     want = torch.zeros_like(got)
     vals = syms.transpose(1, 2).reshape(2 * c, wd.rows * nl)[:, : wd.kw]
-    want[:, wd.wslot] = (T.unpack_signed(vals) + preds).to(torch.int32)
+    want[:, torch.from_numpy(prog.sc[k0:k0 + wd.kw])] = (T.unpack_signed(vals) + preds).to(
+        torch.int32)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     # and as the tp decoder gathers it: 2 ranks of nl / 2 lanes
     parts = syms.reshape(2, wd.rows, c, 2, nl // 2).permute(3, 0, 1, 2, 4)
