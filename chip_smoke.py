@@ -42,12 +42,19 @@ script exits nonzero without printing a result:
                each bit-equal to its plain version, on waves from the
                smallest to the largest at 2048x2048 RGB and at B = 64
                (kernel_check.finish_orders_ms), with its store sectors a
-               warp in both orders;
+               warp in both orders; the predictor fits (fit_stats, four
+               launches) at the benchmark cells' shapes (256x256 gray
+               alone and 64 a batch, 768x512 RGB alone and 8, 2048x2048
+               RGB), timed beside their byte bound, their plain version
+               and the einsum chain they replace (library_ms), and with
+               pinned parameters on stripes and noise;
   3. main    — the port's public encode -> decode (seeded
                natural-statistics images), five paths (a-e), each with the
                launch counts zeroed just before it and read just after it
                (every kernel launched, forward_lift_quantize_pixels,
-               wave_contexts and encode_scan once an encode,
+               wave_contexts and encode_scan once an encode, fit_stats
+               four times an encode (two where the predictor search pins
+               the value parameters),
                dequantize_inverse_lift_pixels once a decode,
                wave_contexts, decode_scan_wave and wave_finish once per
                non-empty wave of a dense grid decode, decode_steps once
@@ -235,7 +242,7 @@ F_SEARCH = ((64, 64, 1, 21), 16)  # on the card and on the CPU
 F_SEARCH_CARD = ((256, 256, 1, 1), 64)
 F_TRACE = (512, 768, 3, 2)
 F_KERNELS = ("fwd_lift_pixels", "rans_encode", "rans_decode_wave", "inv_lift_pixels",
-             "transform_counts")
+             "transform_counts", "fit_pass", "fit_solve")
 # one fresh process that runs the CLI's __main__ (what `python -m
 # frave_tpu_torch.cli ARGS` runs), then prints the kernels' launch counts
 # as the last line of its stderr
@@ -388,25 +395,26 @@ def read_counts(label: str, encodes: int, decodes: int, waves: int, steps: int =
                 choices: int = 0) -> dict:
     """The counts since zero_counts() over `encodes` encode batches and
     `decodes` decode batches (a one-image call is a batch of one): exactly
-    one forward_lift_quantize_pixels, one wave_contexts (the statistics)
-    and one encode_scan launch an encode batch, one transform_counts
-    launch each of the `choices` RGB encode batches under "auto", one
-    dequantize_inverse_lift_pixels a decode batch, one wave_contexts, one
-    decode_scan_wave and one wave_finish per non-empty wave of each grid
-    decode batch with a dense lattice (`waves` in all), one decode_steps
-    each other decode batch (`steps` in all), whatever the batch size; the
-    plain decode row never."""
+    one forward_lift_quantize_pixels, one wave_contexts (the statistics),
+    four fit_stats (the fits) and one encode_scan launch an encode batch,
+    one transform_counts launch each of the `choices` RGB encode batches
+    under "auto", one dequantize_inverse_lift_pixels a decode batch, one
+    wave_contexts, one decode_scan_wave and one wave_finish per non-empty
+    wave of each grid decode batch with a dense lattice (`waves` in all),
+    one decode_steps each other decode batch (`steps` in all), whatever
+    the batch size; the plain decode row never."""
     launches = {n: fn.launches for n, fn in WRAPPERS.items()}
     want = {"forward_lift_quantize_pixels": encodes, "encode_scan": encodes,
             "dequantize_inverse_lift_pixels": decodes, "decode_scan_wave": waves,
             "decode_steps": steps, "wave_contexts": encodes + waves, "wave_finish": waves,
-            "transform_counts": choices}
+            "transform_counts": choices,
+            "fit_stats": kernel_check.FIT_LAUNCHES["none"] * encodes}
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
     if RT.decode_row.calls:
         raise AssertionError(f"{label}: the plain decode row ran {RT.decode_row.calls} times")
-    print(f"main {label}: launches {json.dumps(launches)} (one kernel A, W and C an encode "
-          f"batch, one count kernel an \"auto\" RGB encode batch, one kernel B a decode batch, one kernel W, 3 and V per non-empty wave of a "
+    print(f"main {label}: launches {json.dumps(launches)} (one kernel A, W and C and four "
+          f"fit launches an encode batch, one count kernel an \"auto\" RGB encode batch, one kernel B a decode batch, one kernel W, 3 and V per non-empty wave of a "
           f"dense grid decode batch, one kernel D each other decode batch); plain decode "
           f"rows 0")
     return launches
@@ -487,7 +495,7 @@ def run_checks(plan: dict, dev, checks: dict) -> None:
                 desc = (f"kernel {name} {sh[0]}x{sh[1]}x{sh[2]} program, transform {pk[0]}, "
                         f"{pk[1]} qdiv")
             if images:
-                desc += f", batch of {images} in one launch"
+                desc += f", batch of {images} in one launch{' set' if name == 'fit_stats' else ''}"
             if name == "decode_scan_wave":
                 desc += f" clusters {list(clusters)} (rule: {r['cluster']})"
             times = ""
@@ -496,6 +504,8 @@ def run_checks(plan: dict, dev, checks: dict) -> None:
                          f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.5f} ms")
                 if "floor_ms" in r:
                     times += f" empty-launch floor {r['floor_ms']:.5f} ms"
+                if "library_ms" in r:
+                    times += f" library (the einsum chain) {r['library_ms']:.4f} ms"
             print(f"{desc}: max_abs_err {r['max_abs_err']}{times}")
             if "cluster_ms" in r:
                 print(f"kernel {name} {tuple(sh)} device ms by cluster size (0: the rule): "
@@ -1160,7 +1170,7 @@ def path_f_cli(dev, tmp, totals: dict, big_blob: bytes) -> dict:
     np.save(tmp / "parity.npy", par_px)
     waves = kernel_check.grid_shapes(*F_GRID[:3])["waves"]
     enc = {"forward_lift_quantize_pixels": 1, "encode_scan": 1, "wave_contexts": 1,
-           "transform_counts": 1}
+           "transform_counts": 1, "fit_stats": kernel_check.FIT_LAUNCHES["none"]}
     # the grid encode and decode each alone (their walls are the cold
     # starts), then the native decode beside the parity encode
     groups = [
@@ -1248,11 +1258,14 @@ def path_f_optimize(dev, tmp, totals: dict) -> None:
     sync(dev)
     got = {n: fn.launches for n, fn in WRAPPERS.items()}
     runs = got["forward_lift_quantize_pixels"]
+    fits = kernel_check.FIT_LAUNCHES["vp"] * runs  # the search pins the value parameters
     if dev.type == "cuda" and (runs < n_cands or got != {**{n: 0 for n in got},
                                                          "forward_lift_quantize_pixels": runs,
                                                          "encode_scan": runs,
-                                                         "wave_contexts": runs}):
-        raise AssertionError(f"f4 search: launches {got}, expected one A, W and C an encode")
+                                                         "wave_contexts": runs,
+                                                         "fit_stats": fits}):
+        raise AssertionError(f"f4 search: launches {got}, expected one A, W and C and two fit "
+                             "launches an encode")
     for n, k in got.items():
         totals[n] += k
     (best_cpu, res_cpu), t_cpu = timed(lambda: CLI.search_predictors(img, cands, device="cpu"))
@@ -1663,6 +1676,13 @@ def main() -> int:
             plan["transform_counts"].append((all_images[label].shape[:2], q, q == "lossless",
                                              (0,), 0))
     plan["transform_counts"].append((RGB, "lossless", True, (0,), 8))
+    # the predictor fits at the cells' shapes, timed (2048x2048 RGB last:
+    # the kernels line reports it); pinned parameters on 768x512 RGB
+    plan["fit_stats"] = [((*GRAY, 1), ("valid", "none"), True, (0,), n) for n in (0, BATCH)]
+    plan["fit_stats"] += [((*RGB, 3), kind, kind[1] == "none", (0,), n)
+                          for kind in (("valid", "none"), ("stripes", "vp"), ("noise", "vpwp"))
+                          for n in (0, 8)]
+    plan["fit_stats"].append((all_images[big_label].shape, ("valid", "none"), True, (0,), 0))
     # whole batches in one launch: 768x512 RGB at B = 4 and kernel 3 with
     # more clusters than are resident, untimed; then 256x256 gray at
     # B = 64, bench.py's batch, timed last (the kernels line reports it)
@@ -1898,7 +1918,7 @@ def main() -> int:
                  "launches": totals[name],
                  "max_abs_err": max(r["max_abs_err"] for r in rs),
                  "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
-                 "bound_by": "bytes", "library_ms": None, "shape": at["shape"],
+                 "bound_by": "bytes", "library_ms": at.get("library_ms"), "shape": at["shape"],
                  "images": at["images"]}
         if name in kernel_check.CLUSTERED:
             entry["cluster"] = at["cluster"]

@@ -10,11 +10,11 @@ the header row) keeps a leading [B] axis. Each of the four kernels takes
 the whole batch in one launch. The one-image calls are batches of one.
 
 Encode (CodecProgram.encode_exec): channel transform, leaf gather,
-forward lifting + quantize (one launch, kernel A) -> statistics: one
-gather of the fit samples' taps (every HF symbol; in grid mode from K =
-2^18 symbols up every fit_stride-th of a wave, as the JAX program's
-dense grid statistics subsample) -> Gram/Cholesky predictor
-fits rounded to the f16 wire values -> contexts and zig-zag symbols from
+forward lifting + quantize (one launch, kernel A) -> statistics: the
+predictor fits over the fit samples (every HF symbol; in grid mode from
+K = 2^18 symbols up every fit_stride-th of a wave, as the JAX program's
+dense grid statistics subsample), Gram/Cholesky rounded to the f16 wire
+values (four launches, ops/fit_stats.py) -> contexts and zig-zag symbols from
 the schedule records (one launch, kernel W, ops/wave_ctx.py) ->
 exact histogram -> context tables -> reverse rANS scan (kernel C) over
 the program's row map (grid mode: each wave's rows; the parallel and
@@ -96,7 +96,9 @@ from ..fractal.schedule import (
 )
 from ..images import AnsContextTables, ChannelData, ColorSpace, CompressedImage, RasterImage
 from ..metrics import get_metrics
+from ..ops import fit_stats as FS
 from ..ops import torch_ops as T
+from ..ops.fit_stats import fit_predictors  # noqa: F401  (the sharded encoder's fits)
 from ..ops.lifting import dequantize_inverse_lift_pixels, forward_lift_quantize_pixels
 from ..ops.rans_torch import (
     encode_scan,
@@ -118,7 +120,6 @@ from .options import EncoderOptions, quantization_matrix
 _I64 = torch.int64
 _I32 = torch.int32
 _F32 = torch.float32
-_F64 = torch.float64
 # per channel: bits [CA] + off bitmask [CA, 32] + Laplace-grid scales [CA]
 _HDR_TABLES = CONTEXT_AMOUNT + CONTEXT_AMOUNT * (ALPHABET_SIZE // 32) + CONTEXT_AMOUNT
 # the statistics gate of the JAX program: the strided fits from this many
@@ -219,83 +220,6 @@ def check_step_order(steps, n_slots: int, step_map=None, rec=None) -> None:
     k0 = np.repeat(step_map[:, 0], step_map[:, 2])
     if k0.shape[0] != rec.shape[0] or np.any(rec[:, 1:7] >= k0[:, None]):
         raise AssertionError("a step's tap reads a schedule index at or past the step's first")
-
-
-def _gram_solve(G: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Regularised Cholesky solve of batched 6x6 normal equations. Where
-    the factorisation fails the result is NaN, as XLA's Cholesky gives."""
-    tr = torch.diagonal(G, dim1=-2, dim2=-1).sum(-1)
-    eps = tr * 1e-6 / 6.0 + 1e-12
-    eye = torch.eye(G.shape[-1], dtype=G.dtype, device=G.device)
-    L, info = torch.linalg.cholesky_ex(G + eps[..., None, None] * eye)
-    y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
-    x = torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
-    return torch.where((info != 0)[..., None], torch.full_like(x, float("nan")), x)
-
-
-def _width_feats(Xs: torch.Tensor) -> torch.Tensor:
-    """Width-model design features over tap values [..., 6]: bias + the 5
-    gradient magnitudes."""
-    return torch.stack(
-        [
-            torch.ones_like(Xs[..., 0]),
-            torch.abs(Xs[..., 0] - Xs[..., 3]),
-            torch.abs(Xs[..., 1] - Xs[..., 2]),
-            torch.abs(Xs[..., 4] - Xs[..., 5]),
-            torch.abs(Xs[..., 1] - Xs[..., 5]),
-            torch.abs(Xs[..., 2] - Xs[..., 4]),
-        ],
-        dim=-1,
-    )
-
-
-def fit_predictors(Xs_l, ys_l, overrides, reduce=None):
-    """Per-group predictor fits of every row: Xs_l / ys_l are per-group
-    tap values [rows, k_g, 6] and targets [rows, k_g] (integer values), a
-    row one (image, channel) of a batch. Value parameters by least squares,
-    rounded to the f16 wire values; width parameters fitted to the
-    |residuals| of those rounded values. `overrides` = (vp [rows, F, 6],
-    wp, use_w) tensors pin the parameters instead (the width fit still runs
-    when only the value parameters are pinned). `reduce`, where given, sums
-    each pair of normal equations (G, b) over the shards of a sharded
-    encode before its solve: each shard passes its own samples. Returns
-    (vparams, wparams) [rows, F, 6] f32 — ONE tensor each, read by both
-    the symbol math and the wire header.
-
-    The sums and solves run in float64 and round to f32 at the end: the
-    value Grams of integer taps are exact there (the width Grams all but
-    exact), so a row's fit does not depend on the order in which a library
-    sums, which on the card follows the batch's row count. An image's fit
-    is therefore the same alone and in any batch."""
-    vp_ovr, wp_ovr, use_w = overrides if overrides is not None else (None, None, False)
-    Xs_l = [X.to(_F64) for X in Xs_l]
-    ys_l = [y.to(_F64) for y in ys_l]
-    if vp_ovr is None:
-        G = torch.stack([torch.einsum("ckx,cky->cxy", X, X) for X in Xs_l], dim=1)
-        bv = torch.stack(
-            [torch.einsum("ckx,ck->cx", X, y) for X, y in zip(Xs_l, ys_l)], dim=1
-        )
-        if reduce is not None:
-            G, bv = reduce(G, bv)
-        vparams = _gram_solve(G, bv).to(_F32)
-    else:
-        vparams = vp_ovr
-    vparams = T.f16_wire_round(vparams)
-    if use_w:
-        wparams = wp_ovr
-    else:
-        Gws, bws = [], []
-        for g, (X, y) in enumerate(zip(Xs_l, ys_l)):
-            pred = torch.einsum("ckx,cx->ck", X, vparams[:, g].to(_F64))
-            rg = torch.abs(y - pred)
-            Fs = _width_feats(X)
-            Gws.append(torch.einsum("ckx,cky->cxy", Fs, Fs))
-            bws.append(torch.einsum("ckx,ck->cx", Fs, rg))
-        Gw, bw = torch.stack(Gws, dim=1), torch.stack(bws, dim=1)
-        if reduce is not None:
-            Gw, bw = reduce(Gw, bw)
-        wparams = _gram_solve(Gw, bw).to(_F32)
-    return vparams, T.f16_wire_round(wparams)
 
 
 def fit_stride(kw: int) -> int:
@@ -402,6 +326,7 @@ class CodecProgram:
         self.steps = self.perm = None
         self.num_steps = 0
         self.fit_samples = {False: self._fit_samples(put, strided=False)}
+        self._fit_tables = {}
         waves = None
         if mode == "grid":
             try:
@@ -468,16 +393,24 @@ class CodecProgram:
         idx = np.concatenate(ks)
         return put(self.snbr_safe[idx]), put(self.sc[idx]), ks
 
+    def fit_table(self, strided: bool):
+        """The FitTable (ops/fit_stats.py) of fit_samples[strided], built
+        at its first use and kept: a program fits with one of its sample
+        sets, and the other's table never reaches the card."""
+        table = self._fit_tables.get(strided)
+        if table is None:
+            taps, target, ks = self.fit_samples[strided]
+            table = FS.fit_table(taps, target, [k.shape[0] for k in ks])
+            self._fit_tables[strided] = table
+        return table
+
     def _stats(self, qplane, overrides, strided: bool):
         """The statistics of qplane [rows, n_slots + 1], a row one (image,
-        channel) of a batch: the fit samples' taps and targets in one
-        gather, the per-group fits, then every symbol's bucket and zig-zag
-        symbol in one launch of kernel W (ops/wave_ctx.py)."""
-        taps, target, ks = self.fit_samples[strided]
-        sizes = [k.shape[0] for k in ks]
-        Xs_l = torch.split(qplane[:, taps], sizes, dim=1)
-        ys_l = torch.split(qplane[:, target], sizes, dim=1)
-        vparams, wparams = fit_predictors(Xs_l, ys_l, overrides)
+        channel) of a batch: the per-group fits of the sample set's table
+        (ops/fit_stats.py: four launches on the card), then every symbol's
+        bucket and zig-zag symbol in one launch of kernel W
+        (ops/wave_ctx.py)."""
+        vparams, wparams = FS.fit_stats(qplane, self.fit_table(strided), overrides)
         buckets, symbols = WC.wave_contexts(qplane, self.records, vparams, wparams,
                                             self.channels)
         return vparams, wparams, buckets, symbols

@@ -26,6 +26,7 @@ import torch
 from .codec import channel_transform as CT
 from .entropy.tables import ALPHABET_SIZE, CONTEXT_AMOUNT, _LAPLACE_GRID_ROWS
 from .entropy.tables_torch import finalize_contexts_device
+from .ops import fit_stats as FS
 from .ops import lifting as L
 from .ops import rans_torch as RT
 from .ops import step_decode as SD
@@ -85,6 +86,13 @@ KERNELS = {
         "frave_tpu_torch/csrc/transform_counts.cu",
         "none (frave_tpu/codec/channel_transform.py select_transform counts on the host)",
     ),
+    "fit_stats": (
+        FS.fit_stats,
+        FS.fit_stats_plain,
+        "frave_tpu_torch/csrc/fit_stats.cu",
+        "none (XLA einsums: frave_tpu/codec/grid_decode.py:646-676 + "
+        "frave_tpu/codec/pipeline_jax.py:496-530, _gram_solve :100)",
+    ),
 }
 # the kernels with a forced cluster size (the others run their launch rule)
 CLUSTERED = ("decode_scan_wave", "decode_steps")
@@ -102,6 +110,16 @@ CLUSTERS = (1, 2, 4, 8, 16)
 DECODE_KINDS = ("valid", "garbage")
 WAVE_MODES = ("decode", "encode")
 QDIV_KINDS = ("lossless", "lossy")
+# fit_stats' kinds: a (plane, overrides) pair. The plane's images through
+# plain kernel A, lossless: "valid" seeded natural images, "flat" one gray
+# level an image, "noise" uniform pixels, "stripes" 0/255 columns (taps
+# of 255 and Gram entries near 2^28, the largest of the 0/255 patterns
+# tried: checkerboards, row stripes, binary noise); the overrides: "none",
+# "vp" (the value parameters pinned) or "vpwp" (both pinned)
+FIT_PLANES = ("valid", "flat", "noise", "stripes")
+FIT_OVERRIDES = ("none", "vp", "vpwp")
+# fit_stats' launches an encode batch by overrides kind
+FIT_LAUNCHES = {"none": 4, "vp": 2, "vpwp": 0}
 # kernel C's design points: rows loaded ahead, lanes a block
 ENCODE_AHEAD = (4, 8, 16)
 ENCODE_THREADS = (32, 64, 128, 256)
@@ -422,6 +440,53 @@ def _wave_plane(rng, prog, kind: str, images: int):
     return plane.reshape(B * C, n + 1)
 
 
+def fit_plane(rng, prog, kind: str, images: int = 0):
+    """Plane rows [B*C, n_slots + 1] int32 on the program's device, rows
+    16-byte aligned as kernel A leaves them: the coefficients of FIT_PLANES'
+    `kind` of image through plain kernel A, lossless."""
+    B, C, n, dev = max(images, 1), prog.channels, prog.n_slots, prog.device
+    h, w = prog.height, prog.width
+    if kind == "valid":
+        px = np.stack([natural_image(h, w, C, int(sd)) for sd in rng.integers(0, 1 << 30, size=B)])
+    elif kind == "flat":
+        px = np.broadcast_to(rng.integers(0, 256, size=(B, 1, 1, C)), (B, h, w, C))
+    elif kind == "noise":
+        px = rng.integers(0, 256, size=(B, h, w, C))
+    elif kind == "stripes":
+        px = np.broadcast_to((np.arange(w) % 2 * 255)[None, None, :, None], (B, h, w, C))
+    else:
+        raise ValueError(f"unknown fit plane kind {kind!r}")
+    px = _t(px.astype(np.uint8).reshape(B, h * w, C)).to(dev)
+    q = L.forward_lift_quantize_pixels_plain(
+        px, prog.leaf_pix, torch.ones(512, dtype=torch.int32, device=dev),
+        torch.zeros(B, dtype=torch.int32, device=dev))
+    plane = L.zero_plane(B, C, n, dev)
+    plane[..., :n] = q[..., :n]
+    return plane.reshape(B * C, n + 1)
+
+
+def fit_problem(rng, shape, kind, device, images: int = 0):
+    """fit_stats' operands (args, extra) on the program of `shape` (h, w,
+    c): fit_plane's rows of the plane kind, the FitTable of the sample set
+    the program's statistics use (strided where it has the grid
+    statistics), and the overrides of the kind (pinned values drawn from
+    [-1.5, 1.5) a row, None unpinned)."""
+    plane_kind, ovr = kind
+    prog = program(*shape, device)
+    rows = fit_plane(rng, prog, plane_kind, images)
+    table = prog.fit_table(prog.grid_enc is not None)
+    R, F = rows.shape[0], prog.num_fine
+    if ovr == "none":
+        overrides = None
+    elif ovr in FIT_OVERRIDES:
+        vp, wp = (_t(rng.uniform(-1.5, 1.5, size=(R, F, 6)).astype(np.float32)).to(prog.device)
+                  for _ in range(2))
+        overrides = (vp, wp, ovr == "vpwp")
+    else:
+        raise ValueError(f"unknown fit overrides kind {ovr!r}")
+    return (rows, table, overrides), ()
+
+
 def wave_problem(rng, shape, kind, device, images: int = 0):
     """wave_contexts' operands (args, extra) on the program of `shape`
     (h, w, c[, mode]), kind (mode, problem kind): the plane rows of
@@ -501,7 +566,9 @@ def problem(name: str, rng, shape, kind=None, device="cpu", images: int = 0):
     problem (DECODE_KINDS), W's (mode, problem kind) (default ("decode",
     "valid")), kernel B's transform id (0-3) and kernel A's (transform id,
     qdiv kind) (default (0, "lossy")); transform_counts (h, w) on the CPU
-    (counts_problem; kind "lossless", the default, or "lossy").
+    (counts_problem; kind "lossless", the default, or "lossy"); fit_stats
+    (h, w, c) on `device`, kind a (FIT_PLANES, FIT_OVERRIDES) pair
+    (fit_problem; default ("valid", "none")).
     images: 0 for one image without a batch axis, else the batch size."""
     if name == "decode_scan_wave":
         return decode_problem(rng, *shape, kind, images), ()
@@ -519,6 +586,8 @@ def problem(name: str, rng, shape, kind=None, device="cpu", images: int = 0):
         return finish_problem(rng, shape, kind or "valid", device, images)
     if name == "transform_counts":
         return counts_problem(rng, *shape, kind or "lossless", images), ()
+    if name == "fit_stats":
+        return fit_problem(rng, shape, kind or ("valid", "none"), device, images)
     if kind is not None:
         raise ValueError(f"{name} has no problem kinds")
     if name == "encode_scan":
@@ -529,16 +598,23 @@ def problem(name: str, rng, shape, kind=None, device="cpu", images: int = 0):
 def _to(a, device):
     if isinstance(a, dict):
         return {k: v.to(device) for k, v in a.items()}
-    return a.to(device) if isinstance(a, (torch.Tensor, SD.StepOperands, WC.Records)) else a
+    if isinstance(a, tuple):
+        return tuple(_to(x, device) for x in a)
+    return (a.to(device) if isinstance(a, (torch.Tensor, SD.StepOperands, WC.Records, FS.FitTable))
+            else a)
 
 
 def _max_abs_err(a, b) -> int:
+    """The largest difference of two outputs: of integers their values, of
+    float32 their bit patterns (0: bit-equal, NaNs included)."""
     if isinstance(a, tuple):
         return max(_max_abs_err(x, y) for x, y in zip(a, b))
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     if a.dtype == torch.bool:
         a, b = a.to(torch.int64), b.to(torch.int64)
+    if a.dtype == torch.float32:
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
 
 
@@ -639,6 +715,16 @@ def bytes_moved(name: str, args, out) -> int:
         s = CT._proxy_stride(h, w)
         images = pixels.shape[0] if pixels.dim() == 3 else 1
         return images * -(-h // s) * -(-w // s) * 3 + _nbytes(out)
+    if name == "fit_stats":
+        # each pass: the 28 B of slots a sample once for the batch and the
+        # 28 B of values a sample and row; the pinned and fitted
+        # parameters; the outputs
+        rows, table, overrides = args
+        vp, _, use_w = overrides if overrides is not None else (None, None, False)
+        passes = (vp is None) + (not use_w)
+        n = table.samples.shape[1]
+        return (passes * 28 * n * (1 + rows.shape[0])
+                + (_nbytes(overrides[:2]) if overrides is not None else 0) + _nbytes(out))
     if name == "wave_finish":
         # the wave's slots, its symbols and predictions, the stored values
         syms, preds = args[:2]
@@ -695,7 +781,8 @@ def check_args(name: str, args, extra, device, timed: bool = False, clusters=(0,
     "ms" (device_ms of the wrapper), "wrapper_ms" (median_ms of the
     wrapper, the host's share included), "plain_ms"} (times None unless
     timed; a timed clustered kernel also gives "cluster_ms" {entry: device
-    ms}; W and V also "floor_ms", wave_floor_ms)."""
+    ms}; W and V also "floor_ms", wave_floor_ms; fit_stats "library_ms",
+    fit_predictors' median_ms on the samples gathered beforehand)."""
     wrapper, plain, _, _ = KERNELS[name]
     args = tuple(_to(a, device) for a in args)
     extra = tuple(_to(a, device) for a in extra)
@@ -732,6 +819,11 @@ def check_args(name: str, args, extra, device, timed: bool = False, clusters=(0,
                                     warmup=1 if slow else 3)
         if name in WAVE_KERNELS:
             out["floor_ms"] = wave_floor_ms(name, args, device)
+        if name == "fit_stats":
+            # the library chain the kernels replace: fit_predictors' einsums,
+            # casts and cuBLAS/cuSOLVER solves on the gathered samples
+            Xs, ys = FS._gather(args[0], args[1])
+            out["library_ms"] = median_ms(lambda: FS.fit_predictors(Xs, ys, args[2]))
         if clustered:
             out["cluster_ms"] = {
                 size: device_ms(lambda: wrapper(*args, *extra, **_design_kw(name, size)))

@@ -66,6 +66,8 @@ _SIGNATURES = {
     "frave_wave_occupancy": [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "frave_wave_empty": [_I, _I, _I, _P],
     "frave_transform_counts": [_P, _P] + [_I] * 5 + [_P],
+    "frave_fit_pass": [_P, _L, _I, _P, _L, _P, _P, _I, _P, _I, _P, _P],
+    "frave_fit_solve": [_P, _P] + [_I] * 4 + [_P, _P],
 }
 
 _lock = threading.Lock()

@@ -474,3 +474,75 @@ def test_cuda_encode_dispatch_counts_the_transform_choice(quality, monkeypatch):
         for im, out in zip(imgs * 3, outs):
             if lossless:
                 np.testing.assert_array_equal(out.data, im.data)
+
+
+# the fits at the benchmark cells' shapes: (h, w, c) and the batch sizes
+# (256x256 gray alone and 64 a batch, 768x512 RGB alone and 8, 2048x2048
+# RGB alone)
+FIT_CASES = [((256, 256, 1), (0, 64)), ((512, 768, 3), (0, 8)), ((2048, 2048, 3), (0,))]
+
+
+@pytest.mark.cuda
+def test_cuda_fit_stats_match_fit_predictors():
+    """The fit kernels' f16 wire parameters equal fit_predictors' on the
+    card (the einsum chain) bit for bit, at every shape and batch of
+    FIT_CASES, on every plane of FIT_PLANES, unpinned and with the value
+    parameters pinned alone and with the width parameters: 4, 2 and 0
+    launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    from frave_tpu_torch.ops import fit_stats as FS
+
+    for shape, batches in FIT_CASES:
+        for images in batches:
+            for plane in kernel_check.FIT_PLANES:
+                for ovr in kernel_check.FIT_OVERRIDES:
+                    before = FS.fit_stats.launches
+                    res = kernel_check.check("fit_stats", shape, torch.device("cuda"),
+                                             kind=(plane, ovr), images=images, seed=images + 7)
+                    assert FS.fit_stats.launches == before + kernel_check.FIT_LAUNCHES[ovr]
+                    assert res["max_abs_err"] == 0, res
+
+
+@pytest.mark.cuda
+def test_cuda_fit_sums_exact_and_an_image_fits_alone_as_in_its_batch():
+    """The passes' int64 sums equal chunk_sums_plain's and, added up a
+    group, value_equations' and width_equations' float64 Grams exactly
+    (the width b, summed in another order, to 1e-12); an image's rows
+    alone give its per-chunk sums and its wire parameters bit for bit as
+    in its batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    from frave_tpu_torch.ops import fit_stats as FS
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    for shape, batches in FIT_CASES:
+        prog = kernel_check.program(*shape, dev)
+        table = prog.fit_table(prog.grid_enc is not None)
+        C, B = shape[2], max(batches + (1,))
+        for plane in kernel_check.FIT_PLANES:
+            rows = kernel_check.fit_plane(rng, prog, plane, B)
+            Xs, ys = (tuple(t.to(torch.float64) for t in ts) for ts in FS._gather(rows, table))
+            part = FS.chunk_sums(rows, table)
+            assert torch.equal(part, FS.chunk_sums_plain(rows, table)), (shape, plane)
+            G, b = FS.group_sums(part, table)
+            Gr, br = FS.value_equations(Xs, ys)
+            assert torch.equal(G, Gr) and torch.equal(b, br), (shape, plane)
+            vp, wp = FS.fit_stats(rows, table)
+            wpart = FS.chunk_sums(rows, table, vp)
+            wref = FS.chunk_sums_plain(rows, table, vp)
+            assert torch.equal(wpart[..., :21], wref[..., :21]), (shape, plane)
+            torch.testing.assert_close(wpart[..., 21:].view(torch.float64),
+                                       wref[..., 21:].view(torch.float64), rtol=1e-12, atol=0)
+            G, b = FS.group_sums(wpart, table, width=True)
+            Gr, br = FS.width_equations(Xs, ys, vp)
+            assert torch.equal(G, Gr), (shape, plane)
+            torch.testing.assert_close(b, br, rtol=1e-12, atol=0)
+            for i in {0, B - 1}:
+                one = rows[i * C:(i + 1) * C]
+                v1, w1 = FS.fit_stats(one, table)
+                assert torch.equal(v1.view(torch.int32), vp[i * C:(i + 1) * C].view(torch.int32))
+                assert torch.equal(w1.view(torch.int32), wp[i * C:(i + 1) * C].view(torch.int32))
+                p1 = FS.chunk_sums(one, table, v1)
+                assert torch.equal(p1, wpart[i * C:(i + 1) * C]), (shape, plane, i)
