@@ -66,7 +66,11 @@ inside those, the host's per-pixel copies: frave.encode.stack (the
 pixels stacked into one array), frave.decode.widen (the uploaded wire
 arrays cast to the decode's dtypes, on the device) and frave.pin (each
 pinned staging copy of an upload). transfer_bytes counts the bytes
-handed to _upload ("h2d") and returned by _fetch ("d2h"), on any device.
+handed to _upload ("h2d") and returned by _fetch ("d2h"), on any device;
+quantized_images the images dispatched for an encode ("encode") with,
+and assembled for a decode ("decode") from, a quantization matrix that
+is not all ones (a lossy preset), whose divisors upload under
+frave.encode.upload and are laid out under frave.decode.assemble.
 """
 
 from __future__ import annotations
@@ -662,6 +666,19 @@ def _count_transfer(side: str, arrays) -> None:
         transfer_bytes[side] += n
 
 
+# images dispatched for an encode ("encode") with, and assembled for a
+# decode ("decode") from, a quantization matrix that is not all ones, in
+# this process
+quantized_images = {"encode": 0, "decode": 0}
+_quantized_lock = threading.Lock()
+
+
+def _count_quantized(side: str, matrices) -> None:
+    n = sum(1 for qm in matrices if (np.asarray(qm) != 1).any())
+    with _quantized_lock:
+        quantized_images[side] += n
+
+
 def _upload(arrays, device):
     """numpy arrays -> tensors on `device`: on the card each goes through
     pinned host memory as a non_blocking copy on the current stream (the
@@ -794,6 +811,7 @@ def _encode_dispatch(images: List[RasterImage], opts: EncoderOptions, device,
         nl = opts.num_lanes or default_num_lanes(sched.num_symbols)
         prog = get_program(meta.height, meta.width, nl, C, device, opts.mode)
         qm = quantization_matrix(opts.quality)
+        _count_quantized("encode", [qm] * len(images))
         side = _count_stream(prog.device) if counted and prog.device.type == "cuda" else None
         with annotate("frave.encode.upload"):
             with annotate("frave.encode.stack"):
@@ -1045,6 +1063,7 @@ def _decode_dispatch(images: List[CompressedImage], device, stages=None) -> _Dec
         with annotate("frave.decode.assemble"):
             states, streams, bits, offpk, scales, vp, wp, qdiv, tids = assemble_wire_batch(
                 images, nl)
+            _count_quantized("decode", [im.quantization_matrix for im in images])
         with annotate("frave.decode.upload"):
             # the wire arrays go up in their own widths (the unsigned ones
             # as the signed view of the same bits)
